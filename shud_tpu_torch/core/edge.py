@@ -1,0 +1,444 @@
+"""The lateral edge-flux stencil: plain versions, CUDA kernels, tangent.
+
+The counterpart of ``shud_tpu/core/pallas_edge.py``.  Per edge of the
+3-edge cell stencil it computes the diffusive-wave surface discharge
+(Manning, upwinded depth, MAXYSURF and depression cutoffs), the Darcy
+subsurface discharge (0.02 m cutoffs) and, with open boundaries, the
+kinematic free-drainage boundary laws (``fun_Ele_surface``/``fun_Ele_sub``,
+MD_ElementFlux.cpp:35-156).  Lake-bank edges come out as 0; the caller
+merges that branch by mask (``rhs.edge_fluxes``).
+
+Three functions, each with a plain PyTorch version and a CUDA kernel
+(``csrc/edge_flux.cu``):
+
+* ``edge_flux``: primal ``(q_surf, q_sub)``, each ``[Ne,3]``;
+* ``edge_coeff``: primal plus six per-edge linearisation coefficients
+  ``S_i, S_j, G1, G2, K_i, K_j`` with
+  ``tq_surf = S_i t_sf_i + S_j t_sf_j`` and
+  ``tq_sub = G1 t_gw_i + G2 t_gw_j + K_i t_kh_i + K_j t_kh_j``;
+* ``edge_apply``: that multiply-add for one tangent (one J·v).
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.  ``edge_fluxes`` is what the RHS calls:
+primal-only calls go to ``edge_flux``; under ``torch.func.jvp`` it goes
+through ``EdgeFluxFunction``, whose forward is ``edge_coeff`` and whose
+``jvp`` is ``edge_apply``.  The tangent follows JAX's conventions (0.5 at
+``maximum`` ties, select at ``where``), so it equals ``jax.jvp`` of the
+reference's XLA path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from shud_tpu_torch.config import MAXYSURF
+from shud_tpu_torch.core.physics import (
+    _TINY, absolute, cbrt, maximum, minimum, pow23)
+
+# launches of each CUDA kernel since the last reset_launch_counts()
+launch_counts = {"edge_flux": 0, "edge_coeff": 0, "edge_apply": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions (pallas_edge.py:283-382 flux laws, :580-661 coefficients)
+# ---------------------------------------------------------------------------
+
+
+def _cell_fields(sf, gw, kh, et):
+    """Own-cell columns [Ne,1] and gathered neighbour fields [Ne,3]."""
+    nb = et.nb
+    return (sf[:, None], gw[:, None], kh[:, None],
+            sf[nb], gw[nb], kh[nb], et.dep[:, None], et.rough[:, None])
+
+
+def _flux_surface_int(isf, nsf, dzs, dist, B, ravg, dep3):
+    dh = (isf - nsf) + dzs
+    up1 = torch.where(isf > dep3, isf, 0.0)
+    up2 = torch.where(nsf > dep3, nsf, 0.0)
+    w = torch.where(dh > 0.0, up1, up2)
+    ymean = minimum(w, MAXYSURF)
+    s = dh / dist
+    sqrt_s = torch.sqrt(maximum(absolute(s), _TINY))
+    p23 = pow23(ymean)
+    q_pos = sqrt_s * (ymean * B) * p23 / ravg
+    q = torch.where(s > 0, q_pos, -q_pos)
+    q = torch.where((s > 0) & (isf <= 0.0), 0.0, q)
+    q = torch.where((s < 0) & (nsf <= 0.0), 0.0, q)
+    q = torch.where(ymean <= 0.0, 0.0, q)
+    return q, (dh, w, ymean, s, sqrt_s, p23)
+
+
+def _flux_surface_bnd(isf, d2e, B, rcell, dep3):
+    sb = isf / d2e * 0.5
+    isf5 = cbrt(isf * isf * isf * isf * isf)
+    qb = torch.sqrt(maximum(sb, 0.0)) * isf5 * B / rcell
+    q = torch.where((isf > dep3) & (sb > 0.0), qb, 0.0)
+    return q, (sb, isf5)
+
+
+def _flux_sub_int(gw3, ngw, kh3, nkh, dzb, dist, B):
+    dh_s = (gw3 - ngw) + dzb
+    ymean_s = 0.5 * (maximum(gw3, 0.0) + maximum(ngw, 0.0))
+    grad_s = dh_s / dist
+    kmean = 0.5 * (kh3 + nkh)
+    q = kmean * grad_s * ymean_s * B
+    cut = ((dh_s > 0.0) & (gw3 <= 0.02)) | ((dh_s < 0.0) & (ngw <= 0.02))
+    q = torch.where(cut, 0.0, q)
+    return q, (dh_s, ymean_s, grad_s, kmean, cut)
+
+
+def _flux_sub_bnd(gw3, kh3, d2e, dep3):
+    grad_b = gw3 / d2e * 0.5
+    act = (gw3 > dep3 * 10.0) & (grad_b > 0.0)
+    return torch.where(act, kh3 * grad_b, 0.0), (grad_b, act)
+
+
+def _mask_max0(x):
+    """d/dx of ``maximum(x, 0.0)`` as a multiplier (0.5 at ties)."""
+    return torch.where(x > 0.0, 1.0, torch.where(x == 0.0, 0.5, 0.0))
+
+
+def edge_flux_plain(sf, gw, kh, et, close_boundary: bool):
+    """Plain version of the primal kernel: ``(q_surf, q_sub)`` [Ne,3]."""
+    sf3, gw3, kh3, nsf_raw, ngw, nkh, dep3, rcell = _cell_fields(sf, gw, kh, et)
+    isf = maximum(sf3, 0.0)
+    nsf = maximum(nsf_raw, 0.0)
+    m_int = et.m_int.bool()
+    q_int, _ = _flux_surface_int(isf, nsf, et.dzs, et.dist, et.edge,
+                                 et.avg_rough, dep3)
+    q_sub_int, _ = _flux_sub_int(gw3, ngw, kh3, nkh, et.dzb, et.dist, et.edge)
+    if close_boundary:
+        return (torch.where(m_int, q_int, 0.0),
+                torch.where(m_int, q_sub_int, 0.0))
+    m_bnd = et.m_bnd.bool()
+    q_bnd, _ = _flux_surface_bnd(isf, et.d2e, et.edge, rcell, dep3)
+    q_sub_bnd, _ = _flux_sub_bnd(gw3, kh3, et.d2e, dep3)
+    return (torch.where(m_int, q_int, torch.where(m_bnd, q_bnd, 0.0)),
+            torch.where(m_int, q_sub_int, torch.where(m_bnd, q_sub_bnd, 0.0)))
+
+
+def edge_coeff_plain(sf, gw, kh, et, close_boundary: bool):
+    """Plain version of the coefficient kernel:
+    ``(q_surf, q_sub, S_i, S_j, G1, G2, K_i, K_j)``, each [Ne,3]."""
+    sf3, gw3, kh3, nsf_raw, ngw, nkh, dep3, rcell = _cell_fields(sf, gw, kh, et)
+    B, dist = et.edge, et.dist
+    isf = maximum(sf3, 0.0)
+    m_i = _mask_max0(sf3)  # d isf / d sf_i
+    nsf = maximum(nsf_raw, 0.0)
+    m_j = _mask_max0(nsf_raw)  # d nsf / d sf_j
+    m_int = et.m_int.bool()
+
+    # surface interior: the zero-selects of the flux law gate the tangent
+    q_int, (dh, w, ymean, s, sqrt_s, p23) = _flux_surface_int(
+        isf, nsf, et.dzs, dist, B, et.avg_rough, dep3)
+    cross = ymean * B
+    gate = torch.where((s > 0) & (isf <= 0.0), 0.0, 1.0)
+    gate = torch.where((s < 0) & (nsf <= 0.0), 0.0, gate)
+    gate = torch.where(ymean <= 0.0, 0.0, gate)
+    sgn_q = torch.where(s > 0, 1.0, -1.0)
+    sgn_s = torch.where(s >= 0.0, 1.0, -1.0)
+    # a: coefficient of t_dh (through sqrt_s); b: of t_w (through ymean)
+    a = torch.where(absolute(s) > _TINY,
+                    sgn_s / (2.0 * sqrt_s * dist) * cross * p23 / et.avg_rough,
+                    0.0)
+    c_p = torch.where(ymean > _TINY,
+                      (2.0 / 3.0) / cbrt(maximum(ymean, _TINY)), 0.0)
+    m_ym = torch.where(w < MAXYSURF, 1.0, torch.where(w == MAXYSURF, 0.5, 0.0))
+    b = sqrt_s * (B * p23 + cross * c_p) / et.avg_rough * m_ym
+    u_i = torch.where(dh > 0.0, torch.where(isf > dep3, 1.0, 0.0), 0.0)
+    u_j = torch.where(dh > 0.0, 0.0, torch.where(nsf > dep3, 1.0, 0.0))
+    gs = gate * sgn_q
+    s_i = gs * (a + b * u_i) * m_i
+    s_j = gs * (-a + b * u_j) * m_j
+
+    # subsurface interior
+    q_sub_int, (dh_s, ymean_s, grad_s, kmean, cut) = _flux_sub_int(
+        gw3, ngw, kh3, nkh, et.dzb, dist, B)
+    live = torch.where(cut, 0.0, 1.0)
+    km_ym_d = kmean * ymean_s / dist
+    half_kg = 0.5 * kmean * grad_s
+    g1 = live * B * (km_ym_d + half_kg * _mask_max0(gw3))
+    g2 = live * B * (-km_ym_d + half_kg * _mask_max0(ngw))
+    k_sym = live * B * 0.5 * grad_s * ymean_s
+
+    def sel(v_int, v_bnd=None):
+        if v_bnd is None:
+            return torch.where(m_int, v_int, 0.0)
+        return torch.where(m_int, v_int, torch.where(m_bnd, v_bnd, 0.0))
+
+    if close_boundary:
+        return (sel(q_int), sel(q_sub_int), sel(s_i), sel(s_j), sel(g1),
+                sel(g2), sel(k_sym), sel(k_sym))
+
+    # open-boundary branches (kinematic drainage)
+    m_bnd = et.m_bnd.bool()
+    d2e = et.d2e
+    q_bnd, (sb, isf5) = _flux_surface_bnd(isf, d2e, B, rcell, dep3)
+    act_s = (isf > dep3) & (sb > 0.0)
+    sqrt_sb = torch.sqrt(maximum(sb, 0.0))
+    c_sqrt_sb = torch.where(sb > 0.0, 0.5 / (d2e * 2.0 * sqrt_sb), 0.0)
+    u4 = isf * isf * isf * isf
+    c_isf5 = torch.where(isf > 0.0, 5.0 * u4 / (3.0 * isf5 * isf5), 0.0)
+    s_b = torch.where(act_s, (c_sqrt_sb * isf5 + sqrt_sb * c_isf5) * B / rcell,
+                      0.0) * m_i
+    q_sub_bnd, (grad_b, act_b) = _flux_sub_bnd(gw3, kh3, d2e, dep3)
+    g1_bnd = torch.where(act_b, kh3 * 0.5 / d2e, 0.0)
+    k_i_bnd = torch.where(act_b, grad_b, 0.0)
+    return (sel(q_int, q_bnd), sel(q_sub_int, q_sub_bnd), sel(s_i, s_b),
+            sel(s_j), sel(g1, g1_bnd), sel(g2), sel(k_sym, k_i_bnd),
+            sel(k_sym))
+
+
+def edge_apply_plain(coeffs, tsf, tgw, tkh, et):
+    """Plain version of the apply kernel: ``(tq_surf, tq_sub)`` [Ne,3]."""
+    si, sj, g1, g2, ki, kj = coeffs
+    nb = et.nb
+    tqs = si * tsf[:, None] + sj * tsf[nb]
+    tqb = (g1 * tgw[:, None] + g2 * tgw[nb]
+           + ki * tkh[:, None] + kj * tkh[nb])
+    return tqs, tqb
+
+
+# ---------------------------------------------------------------------------
+# CUDA build and launch
+# ---------------------------------------------------------------------------
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "edge_flux.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_LIB = None
+build_info: dict = {}  # path, seconds and ptxas report of the last build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def build_library() -> ctypes.CDLL:
+    """Compile ``csrc/edge_flux.cu`` for sm_90a (once per source hash) into
+    ``build/`` and load it.  Raises with nvcc's output if the build fails."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    src = _SRC.read_bytes()
+    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    out = _BUILD_DIR / f"libshud_edge_{digest[:16]}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not out.exists():
+        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except FileNotFoundError as exc:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc not found: {cmd[0]}") from exc
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stderr}{proc.stdout}")
+        log = proc.stderr + proc.stdout
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.shud_edge_flux.argtypes = [p] * 16 + [i, i, p]
+    lib.shud_edge_coeff.argtypes = [p] * 22 + [i, i, p]
+    lib.shud_edge_apply.argtypes = [p] * 12 + [i, p]
+    for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply):
+        fn.restype = ctypes.c_int
+    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
+                      ptxas=log)
+    _LIB = lib
+    return lib
+
+
+def _on_cpu(*tensors) -> bool:
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return True
+    if devs != {"cuda"}:
+        raise ValueError(f"edge kernels take CPU or CUDA tensors, got {devs}")
+    return False
+
+
+def _check(et, fields):
+    """Validate what the kernels read: one CUDA device, float32, [Ne] and
+    [Ne,3] shapes, contiguous."""
+    ne = et.dep.shape[0]
+    dev = et.dep.device
+    for name, t in list(fields) + list(et._asdict().items()):
+        if name == "nb":
+            continue
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, tables on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        want = {"nabr": torch.int32, "m_int": torch.uint8,
+                "m_bnd": torch.uint8}.get(name, torch.float32)
+        if t.dtype != want:
+            raise ValueError(f"{name} is {t.dtype}, the kernel takes {want}")
+        shape = (ne,) if t.dim() == 1 else (ne, 3)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+
+
+def _ptrs(*tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _raise_if(err: int, name: str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _table_list(et):
+    return [et.nabr, et.edge, et.dist, et.avg_rough, et.dzs, et.dzb, et.d2e,
+            et.m_int, et.m_bnd, et.dep, et.rough]
+
+
+# The launches are dispatcher ops (torch.library.custom_op), so that inside
+# torch.func transforms they receive plain tensors with storage: the
+# functorch wrappers of the tangents and saved coefficients have none.
+
+
+@torch.library.custom_op("shud_tpu_torch::edge_flux", mutates_args=(),
+                         device_types="cuda")
+def _edge_flux_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
+                  tables: list[torch.Tensor],
+                  close_boundary: bool) -> list[torch.Tensor]:
+    lib = build_library()
+    outs = [torch.empty_like(tables[1]) for _ in range(2)]
+    err = lib.shud_edge_flux(*_ptrs(sf, gw, kh, *tables, *outs),
+                             sf.shape[0], int(close_boundary), _stream())
+    _raise_if(err, "edge_flux")
+    launch_counts["edge_flux"] += 1
+    return outs
+
+
+@torch.library.custom_op("shud_tpu_torch::edge_coeff", mutates_args=(),
+                         device_types="cuda")
+def _edge_coeff_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
+                   tables: list[torch.Tensor],
+                   close_boundary: bool) -> list[torch.Tensor]:
+    lib = build_library()
+    outs = [torch.empty_like(tables[1]) for _ in range(8)]
+    err = lib.shud_edge_coeff(*_ptrs(sf, gw, kh, *tables, *outs),
+                              sf.shape[0], int(close_boundary), _stream())
+    _raise_if(err, "edge_coeff")
+    launch_counts["edge_coeff"] += 1
+    return outs
+
+
+@torch.library.custom_op("shud_tpu_torch::edge_apply", mutates_args=(),
+                         device_types="cuda")
+def _edge_apply_op(tsf: torch.Tensor, tgw: torch.Tensor, tkh: torch.Tensor,
+                   nabr: torch.Tensor,
+                   coeffs: list[torch.Tensor]) -> list[torch.Tensor]:
+    lib = build_library()
+    outs = [torch.empty_like(coeffs[0]) for _ in range(2)]
+    err = lib.shud_edge_apply(*_ptrs(tsf, tgw, tkh, nabr, *coeffs, *outs),
+                              tsf.shape[0], _stream())
+    _raise_if(err, "edge_apply")
+    launch_counts["edge_apply"] += 1
+    return outs
+
+
+def edge_flux(sf, gw, kh, et, close_boundary: bool):
+    """Primal edge fluxes ``(q_surf, q_sub)`` [Ne,3]."""
+    if _on_cpu(sf, gw, kh, et.dep):
+        return edge_flux_plain(sf, gw, kh, et, close_boundary)
+    _check(et, [("sf", sf), ("gw", gw), ("kh", kh)])
+    return tuple(_edge_flux_op(sf, gw, kh, _table_list(et),
+                               bool(close_boundary)))
+
+
+def edge_coeff(sf, gw, kh, et, close_boundary: bool):
+    """Primal fluxes plus the six coefficient arrays, eight [Ne,3]."""
+    if _on_cpu(sf, gw, kh, et.dep):
+        return edge_coeff_plain(sf, gw, kh, et, close_boundary)
+    _check(et, [("sf", sf), ("gw", gw), ("kh", kh)])
+    return tuple(_edge_coeff_op(sf, gw, kh, _table_list(et),
+                                bool(close_boundary)))
+
+
+def edge_apply(coeffs, tsf, tgw, tkh, et):
+    """J·v through the coefficients: ``(tq_surf, tq_sub)`` [Ne,3]."""
+    if _on_cpu(tsf, tgw, tkh, et.dep):
+        return edge_apply_plain(coeffs, tsf, tgw, tkh, et)
+    names = ("s_i", "s_j", "g1", "g2", "k_i", "k_j")
+    _check(et, [("tsf", tsf), ("tgw", tgw), ("tkh", tkh)]
+           + list(zip(names, coeffs)))
+    return tuple(_edge_apply_op(tsf, tgw, tkh, et.nabr, list(coeffs)))
+
+
+# ---------------------------------------------------------------------------
+# forward-mode derivative and the RHS entry point
+# ---------------------------------------------------------------------------
+
+
+class EdgeFluxFunction(torch.autograd.Function):
+    """Edge fluxes with their exact tangent: ``forward`` runs the coefficient
+    kernel (primal + six coefficients), ``jvp`` the apply kernel."""
+
+    @staticmethod
+    def forward(sf, gw, kh, et, close_boundary):
+        return edge_coeff(sf, gw, kh, et, close_boundary)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.et = inputs[3]
+        ctx.mark_non_differentiable(*output[2:])
+        ctx.save_for_forward(*output[2:])
+
+    @staticmethod
+    def jvp(ctx, tsf, tgw, tkh, _t_et, _t_cb):
+        coeffs = ctx.saved_tensors
+        ne = coeffs[0].shape[0]
+        tsf, tgw, tkh = (coeffs[0].new_zeros(ne) if t is None
+                         else t.contiguous() for t in (tsf, tgw, tkh))
+        tqs, tqb = edge_apply(coeffs, tsf, tgw, tkh, ctx.et)
+        return (tqs, tqb) + (None,) * 6
+
+
+def edge_fluxes(et, sf, gw, kh, close_boundary: bool):
+    """What the RHS calls: ``(q_surf, q_sub)`` [Ne,3] through the kernels.
+
+    Inside a ``torch.func`` transform (the solver's J·v) the call goes
+    through ``EdgeFluxFunction``; otherwise straight to the primal kernel.
+    The kernels carry no reverse-mode derivative, so a call that autograd
+    would record is refused rather than silently cut from the graph."""
+    # the same test autograd.Function.apply makes to route functorch calls
+    if torch._C._are_functorch_transforms_active():
+        return EdgeFluxFunction.apply(sf, gw, kh, et, close_boundary)[:2]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (sf, gw, kh)):
+        raise RuntimeError("the edge kernels have a forward-mode derivative "
+                           "only (torch.func.jvp); reverse mode is not "
+                           "supported")
+    return edge_flux(sf, gw, kh, et, close_boundary)

@@ -1,0 +1,77 @@
+"""Full-state binary checkpoint / resume.
+
+The counterpart of ``shud_tpu/io/checkpoint.py``, with the same ``.npz``
+layout: one array per state leaf, keyed by its path (``bdf/y``,
+``bdf/quad/et``, ``buckets/snow``, ...), plus ``__t__``.  A checkpoint
+written by either package loads into the other, and a resumed run
+continues the saved trajectory bit for bit (solver history, step size,
+order, counters and quadrature accumulators included).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from shud_tpu_torch.core.landsurface import BucketState
+from shud_tpu_torch.solver.bdf import BDFState, np_dtype
+
+_INT_FIELDS = ("order", "nfe", "nsteps", "nfails", "nnifails")
+
+
+def _leaves(sim) -> dict:
+    """Path -> value of every state leaf (tensors, host scalars)."""
+    out = {}
+    for name, v in sim.bdf._asdict().items():
+        if v is None:
+            continue
+        if name == "quad":
+            for k, q in v.items():
+                out[f"bdf/quad/{k}"] = q
+        else:
+            out[f"bdf/{name}"] = v
+    for name, v in sim.buckets._asdict().items():
+        out[f"buckets/{name}"] = v
+    return out
+
+
+def save_checkpoint(path: str, sim) -> None:
+    """Write the complete simulation state to *path* (``.npz``)."""
+    payload = {"__t__": np.asarray(float(sim.t))}
+    for key, v in _leaves(sim).items():
+        if isinstance(v, torch.Tensor):
+            payload[key] = v.detach().cpu().numpy()
+        elif key.rsplit("/", 1)[-1] in _INT_FIELDS:
+            payload[key] = np.asarray(v, dtype=np.int32)
+        else:
+            payload[key] = np.asarray(v)
+    with open(path, "wb") as f:
+        np.savez(f, **payload)
+
+
+def load_checkpoint(path: str, sim) -> None:
+    """Restore state saved by :func:`save_checkpoint` (of either package)
+    into *sim*, created for the same project and configuration, whose
+    state is the template for dtypes and devices."""
+    with np.load(path) as z:
+        data = {k: z[k] for k in z.files}
+    dt = np_dtype(sim.bdf.y.dtype)
+    new = {}
+    for key, leaf in _leaves(sim).items():
+        if key not in data:
+            raise KeyError(f"checkpoint {path} missing leaf {key!r}")
+        v = data[key]
+        if isinstance(leaf, torch.Tensor):
+            new[key] = torch.as_tensor(v).to(dtype=leaf.dtype,
+                                             device=leaf.device)
+        elif isinstance(leaf, int):
+            new[key] = int(v)
+        else:
+            new[key] = dt(v)
+    bdf = {name: new.get(f"bdf/{name}") for name in BDFState._fields}
+    if sim.bdf.quad is not None:
+        bdf["quad"] = {k: new[f"bdf/quad/{k}"] for k in sim.bdf.quad}
+    sim.bdf = BDFState(**bdf)
+    sim.buckets = BucketState(
+        **{name: new[f"buckets/{name}"] for name in BucketState._fields})
+    sim.t = float(data["__t__"])

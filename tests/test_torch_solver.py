@@ -1,0 +1,102 @@
+"""The port's adaptive BDF Newton-Krylov solver (solver/bdf.py).
+
+The toy problems of tests/test_solver.py with their bounds, and one
+synthetic solver window in f64 against the JAX solver: the same step and
+RHS-evaluation counts and a state within 1e-10.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+torch.set_num_threads(1)
+
+from shud_tpu_torch.solver.bdf import (SolverConfig, bdf_init,  # noqa: E402
+                                       solve_to)
+from torch_variants import meshes, random_inputs  # noqa: E402
+
+
+def _toy_f(t, y, k):
+    return torch.stack([-k * y[0] + y[1], -0.1 * y[1] + 0.05 * torch.sin(y[0])])
+
+
+def _toy_ref():
+    from scipy.integrate import solve_ivp
+
+    return solve_ivp(
+        lambda t, y: np.array([-50.0 * y[0] + y[1],
+                               -0.1 * y[1] + 0.05 * np.sin(y[0])]),
+        (0, 10), [1.0, 0.5], method="BDF", rtol=1e-10, atol=1e-12,
+    ).y[:, -1]
+
+
+def test_toy_stiff_accuracy():
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, h_max=1e9, h_init=1e-4)
+    st = bdf_init(0.0, torch.tensor([1.0, 0.5], dtype=torch.float64), cfg)
+    st = solve_to(_toy_f, st, 10.0, 50.0, cfg)
+    assert np.abs(st.y.numpy() - _toy_ref()).max() < 1e-4
+    assert st.nnifails == 0
+
+
+def test_adaptive_linear_matches_expm():
+    import scipy.linalg
+
+    a = torch.tensor([[-8.0, 1.0], [0.5, -3.0]], dtype=torch.float64)
+    y0 = torch.tensor([1.0, -0.5], dtype=torch.float64)
+    cfg = SolverConfig(rtol=1e-7, atol=1e-10, h_max=1e9, h_init=1e-4)
+    st = solve_to(lambda t, y, p: p @ y, bdf_init(0.0, y0, cfg), 2.0, a, cfg)
+    exact = scipy.linalg.expm(a.numpy() * 2.0) @ y0.numpy()
+    assert np.abs(st.y.numpy() - exact).max() < 1e-5
+
+
+def test_toy_stiff_accuracy_order3():
+    ref = _toy_ref()
+    steps = {}
+    for mo in (2, 3):
+        cfg = SolverConfig(rtol=1e-6, atol=1e-9, h_max=1e9, h_init=1e-4,
+                           max_order=mo)
+        st = bdf_init(0.0, torch.tensor([1.0, 0.5], dtype=torch.float64), cfg)
+        st = solve_to(_toy_f, st, 10.0, 50.0, cfg)
+        assert np.abs(st.y.numpy() - ref).max() < 1e-4, mo
+        steps[mo] = st.nsteps
+    assert steps[3] < steps[2], steps
+
+
+@pytest.mark.parametrize("max_order", (2, 3))
+def test_synthetic_window_matches_jax(max_order):
+    from shud_tpu.core import rhs as JR
+    from shud_tpu.core.device import to_device
+    from shud_tpu.core.state import ForcingSlice as JFS
+    from shud_tpu.solver import bdf as JB
+    from shud_tpu_torch.core import rhs as TR
+    from shud_tpu_torch.core.device import to_torch
+    from shud_tpu_torch.core.state import ForcingSlice as TFS
+
+    md_j, md_t, cb = meshes("lake", 6, 4)
+    fs, y = random_inputs(md_j, seed=5)
+    fs["net_prcp"] = fs["net_prcp"] * 10.0  # a storm: several steps
+    kw = dict(rtol=1e-4, atol=1e-4, h_max=10.0, h_init=1e-2,
+              max_order=max_order)
+
+    dm_j = to_device(md_j, jnp.float64)
+    fs_j = JFS(**{k: jnp.asarray(v) for k, v in fs.items()})
+    cfg_j = JB.SolverConfig(**kw)
+    st_j = JB.solve_to(lambda t, yy, p: JR.rhs(p[0], p[1], t, yy, cb),
+                       JB.bdf_init(0.0, jnp.asarray(y), cfg_j), 10.0,
+                       (dm_j, fs_j), cfg_j)
+
+    dm_t = to_torch(md_t, torch.float64)
+    fs_t = TFS(**{k: torch.tensor(v) for k, v in fs.items()})
+    cfg_t = SolverConfig(**kw)
+    st_t = solve_to(lambda t, yy, p: TR.rhs(p[0], p[1], t, yy, cb),
+                    bdf_init(0.0, torch.tensor(y), cfg_t), 10.0,
+                    (dm_t, fs_t), cfg_t)
+
+    assert st_t.nsteps == int(st_j.nsteps) and st_t.nsteps > 3
+    assert st_t.nfe == int(st_j.nfe)
+    assert st_t.nfails == int(st_j.nfails)
+    assert float(st_t.t) == float(st_j.t) == 10.0
+    assert np.abs(st_t.y.numpy() - np.asarray(st_j.y)).max() <= 1e-10
