@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (shud_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                   # one simulated day, 131,072 cells
-    python3 chip_smoke.py --sim-minutes 60  # a shorter main-path run
+    python3 chip_smoke.py                   # the main-path runs below
+    python3 chip_smoke.py --sim-minutes 60  # shorter main-path runs
 
-Phases (any failed check raises and the script exits nonzero; nothing
-falls back to the CPU):
+Two paths, both run_project_fast in float32 on the card: the megakernel
+path at 32,768 cells for one simulated day (one kernel call per RHS, J·v
+and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072 cells
+for six simulated hours from the storm's onset (eager RHS with the edge
+trio, csrc/edge_flux.cu).  Phases (any failed check raises and the
+script exits nonzero; nothing falls back to the CPU):
  1. the card (nvidia-smi name and power limit), exit if CUDA is absent;
- 2. build the edge-flux CUDA kernels from shud_tpu_torch/csrc/edge_flux.cu;
- 3. build a 131,072-cell synthetic watershed, shuffled then RCM-localised;
- 4. each kernel against its plain PyTorch version on the card, both
-    boundary modes, every 7th cell dry; per-call times (CUDA events,
-    median of 20);
- 5. the full f32 RHS with vs without the kernels (and on a lake mesh);
- 6. the main path: run_project_fast in float32 on the card, with the
-    kernel launch counters reset just before and read just after;
- 7. 6 windows on the kernel path vs the plain f32 path, from the storm's
-    onset;
- 8. one window twice on the kernel path, bitwise identical;
- 9. one storm window under torch.profiler: device busy time and idle
-    share, kernel time by name (reported, not checked).
-The line before the last is a JSON object of the kernels; the last is
+ 2. build both CUDA sources (one nvcc each, in parallel); registers and
+    spills of every kernel;
+ 3. the meshes: 131,072 and 32,768 cells, shuffled then RCM-localised,
+    storm from minute 720; an 8,192-cell lake mesh; a 32,768-cell mesh
+    with a branched river network;
+ 4. each edge kernel against its plain PyTorch version (both boundary
+    modes, every 7th cell dry); per-call times (CUDA events, median of
+    20), profiler device time, and the bound;
+ 5. each mega kernel against its plain version on the 32k, lake and
+    branched meshes, both boundary modes, bitwise repeatable; times and
+    bound as in 4;
+ 6. the full f32 RHS and J·v: edge kernels vs plain at 131k (and the lake
+    mesh); mega vs eager at 32k;
+ 7. each main path with every launch count set to 0 just before and read
+    just after: the edge trio launched at 131k, the mega trio (and no
+    edge kernel) at 32k; output file set and finite values;
+ 8. 6 storm windows on each kernel path beside its references, window by
+    window, NFE within 2%: at 131k the plain f32 path, state within
+    2e-5 m; at 32k the mega path on the kernels' plain versions, state
+    within 2e-5 m (bitwise equal so far), and the eager path with the
+    edge kernels, state within 2e-5 m while the eager float32 and float64
+    runs are (the storm then brings cells to the infiltration switch,
+    where any two roundings part: PERF.md section 6); one window twice,
+    bitwise identical;
+ 9. one storm window of each path under torch.profiler: device busy time,
+    idle share, launches per NFE (reported, not checked).
+The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -38,11 +55,17 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNEL_SOURCE = "shud_tpu_torch/csrc/edge_flux.cu"
+EDGE_SOURCE = "shud_tpu_torch/csrc/edge_flux.cu"
+MEGA_SOURCE = "shud_tpu_torch/csrc/mega.cu"
 REPLACES = {
     "edge_flux": "shud_tpu/core/pallas_edge.py:480",
     "edge_coeff": "shud_tpu/core/pallas_edge.py:532",
     "edge_apply": "shud_tpu/core/pallas_edge.py:664",
+}
+MEGA_REPLACES = {
+    "mega_rhs": "shud_tpu/core/pallas_mega.py:1446",
+    "mega_jvp": "shud_tpu/core/pallas_mega.py:1478",
+    "mega_diag": "shud_tpu/core/pallas_mega.py:1461",
 }
 # bars: the Pallas edge kernel's against XLA (tests/test_pallas_edge.py)
 BAR_Q_SURF = 2e-6
@@ -50,7 +73,38 @@ BAR_Q_SUB = 1e-6
 BAR_TANGENT = 1e-6
 BAR_RHS = 2e-6
 BAR_DRIVER = 2e-5  # [m], tests/test_pallas_mega.py:254
+# mega kernels vs their plain versions, scaled per field: dY and each
+# diagnostic 2e-6, J·v 1e-5 (the issue's bars; built without fused
+# multiply-adds, the kernels have matched their plain versions bitwise)
+BAR_MEGA_RHS = 2e-6
+BAR_MEGA_JVP = 1e-5
+# the mega RHS vs the eager RHS, scaled: the JAX package's megakernel
+# against its XLA path (tests/test_pallas_mega.py, scaled 2e-5)
+BAR_RHS_PATHS = 2e-5
 DEVICE = "cuda"
+# (nx, ny) of make_synthetic_project, 2 nx ny cells: the edge-flux path,
+# the mega path (the JAX package's 32,768-cell ceiling), the lake mesh
+EDGE_MESH, MEGA_MESH, LAKE_MESH = (256, 256), (128, 128), (64, 64)
+# the edge path's main-path run: from the storm's onset, six simulated
+# hours (a whole day there takes ~5 minutes of the script's time limit)
+EDGE_MAIN_SPAN = (720.0, 360.0)
+# storm windows of 10 minutes on each kernel path against its references
+STORM_WINDOWS = 6
+
+# the bound: NVIDIA's published H100 SXM peaks at 700 W
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations (one per add, multiply, divide, compare-and-select, square
+# root or transcendental) per entity, counted from the sources: per edge
+# for the edge kernels (edge_flux.cu), per cell (its pointwise physics,
+# three edges and assembly), segment and reach for the mega kernels
+# (mega.cu)
+EDGE_OPS = {"edge_flux": 45, "edge_coeff": 110, "edge_apply": 10}
+MEGA_OPS = {
+    "mega_rhs": {"cell": 290, "seg": 40, "reach": 55},
+    "mega_jvp": {"cell": 590, "seg": 80, "reach": 110},
+    "mega_diag": {"cell": 280, "seg": 40, "reach": 35},
+}
 
 
 def log(msg: str) -> None:
@@ -221,24 +275,40 @@ def phase_kernels(md, torch, edge, results, device_times):
 
     # per-call times at the main path's shapes and boundary mode (closed)
     coeffs = edge.edge_coeff_plain(sf, gw, kh, et, True)[2:]
+    tables = edge._table_list(et)
+    n_edges = 3 * ne
     calls = {
         "edge_flux": (lambda: edge.edge_flux(sf, gw, kh, et, True),
-                      lambda: edge.edge_flux_plain(sf, gw, kh, et, True)),
+                      lambda: edge.edge_flux_plain(sf, gw, kh, et, True),
+                      nbytes(sf, gw, kh, *tables) + 2 * 4 * n_edges),
         "edge_coeff": (lambda: edge.edge_coeff(sf, gw, kh, et, True),
-                       lambda: edge.edge_coeff_plain(sf, gw, kh, et, True)),
+                       lambda: edge.edge_coeff_plain(sf, gw, kh, et, True),
+                       nbytes(sf, gw, kh, *tables) + 8 * 4 * n_edges),
         "edge_apply": (lambda: edge.edge_apply(coeffs, *tan, et),
-                       lambda: edge.edge_apply_plain(coeffs, *tan, et)),
+                       lambda: edge.edge_apply_plain(coeffs, *tan, et),
+                       nbytes(*tan, et.nabr, *coeffs) + 2 * 4 * n_edges),
     }
-    for name, (kern, plain) in calls.items():
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        dev_ms, dev_plain_ms = device_ms_per_call(kern), device_ms_per_call(plain)
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call "
-            f"(CUDA events); device time {dev_ms} ms vs {dev_plain_ms} ms "
-            f"(profiler)")
-        results[name] = {"max_abs_err": err[name], "ms": ms,
-                         "plain_ms": plain_ms}
-        device_times[name] = {"device_ms": dev_ms,
-                              "plain_device_ms": dev_plain_ms}
+    for name, (kern, plain, n_bytes) in calls.items():
+        timed(name, kern, plain, n_bytes, EDGE_OPS[name] * n_edges,
+              err[name], results, device_times)
+
+
+def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
+          device_times):
+    """Time a kernel's wrapper and its plain version (CUDA events and
+    profiler device time) and record them beside the kernel's bound."""
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    dev_ms, dev_plain_ms = device_ms_per_call(kern), device_ms_per_call(plain)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call "
+        f"(CUDA events); device time {dev_ms} ms vs {dev_plain_ms} ms "
+        f"(profiler); bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, "
+        f"{n_ops} ops)")
+    results[name] = {"max_abs_err": max_abs_err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None}
+    device_times[name] = {"device_ms": dev_ms,
+                          "plain_device_ms": dev_plain_ms}
 
 
 def phase_rhs(md, lake_md, torch, summary):
@@ -283,6 +353,186 @@ def phase_rhs(md, lake_md, torch, summary):
                                         summary["jvp_plain_ms"]))
 
 
+def mega_slice(md, device, seed):
+    """Forcing, state and tangent for the mega kernels on the card
+    (``tests/torch_variants.mega_inputs``: non-unit fu_surf/fu_sub, BC
+    values, and exact ties: dry cells, empty unsaturated layers, water
+    tables at the surface, empty reaches)."""
+    import torch
+    from torch_variants import mega_inputs
+
+    from shud_tpu_torch.core.state import ForcingSlice
+
+    fs, y, v = mega_inputs(md, seed)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return ForcingSlice(**{k: t(a) for k, a in fs.items()}), t(y), t(v)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the f32 peak (3.35 TB/s, 67 TFLOP/s)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def mega_work(t, f, kernel: str, close_boundary: bool = True):
+    """Bytes a mega kernel must move in one call on these tables, and the
+    operations it does.  Bytes: each table row and forcing field the
+    kernel reads for this mesh and boundary mode, once (csrc/mega.cu):
+    the lake tables only on a lake mesh, the open-boundary fields only
+    with an open boundary, a BC value only where its flag is set, no
+    assembly fields for the diagnostics; the state (and tangent) once and
+    the output once."""
+    from shud_tpu_torch.core import mega
+
+    diag, rhs = kernel == "mega_diag", kernel == "mega_rhs"
+    lake = t.nl > 0
+
+    def rows(table, names, fields):
+        return sum(4 * table[names.index(k)].numel() for k in fields)
+
+    cell_i = ["ibc_pos"] + (["ibc_neg", "iss_pos", "iss_neg"] if rhs else [])
+    n_bytes = (
+        rows(t.cell_f, mega.CELL_F, [k for k in mega.CELL_F if not (
+            (k == "rough" and close_boundary)
+            or (k in ("area", "sy") and diag))])
+        + rows(t.cell_i, mega.CELL_I, cell_i + (["is_lake"] if lake else []))
+        + rows(t.edge_f, mega.EDGE_F, ["B", "dist", "ravg", "dzs", "dzb"]
+               + ([] if close_boundary else ["d2e"])
+               + (["lk_dzl", "lk_dzb"] if lake else []))
+        + rows(t.edge_i, mega.EDGE_I, ["nbq", "m_int"]
+               + ([] if close_boundary else ["m_bnd"])
+               + (["m_lake", "lk_id"] if lake else []))
+        + nbytes(t.seg_f, t.seg_i, t.riv_f, t.seg_to_ele, t.seg_to_riv,
+                 t.riv_up, f.segfu)
+        + rows(t.riv_i, mega.RIV_I, ["has_down", "dn", "crit_out",
+                                     "to_lake", "bc_pos"])
+        + (nbytes(t.edge_to_lake, t.riv_to_lake, t.lake_zmin, t.bathy_y,
+                  t.bathy_a, f.flake) if lake else 0)
+        + rows(f.fcell, mega.FORC_CELL, ["net_prcp", "pot_evap", "pot_tran",
+                                         "e_ic", "lai", "fu_surf", "fu_sub"])
+        + (0 if diag else rows(f.friv, mega.FORC_RIV, ["riv_qbc"])))
+    # BC values, read where their flag is set
+    flags = {k: t.cell_i[mega.CELL_I.index(k)] > 0 for k in mega.CELL_I}
+    n_bc = int(flags["ibc_pos"].sum())
+    if rhs:
+        n_bc += int(flags["ibc_neg"].sum())
+        n_bc += int((flags["iss_pos"] | flags["iss_neg"]).sum())
+    n_bc += int((t.riv_i[mega.RIV_I.index("bc_pos")] > 0).sum())
+    n = 3 * t.ne + t.nr + t.nl
+    n_state = 2 if kernel == "mega_jvp" else 1
+    n_out = mega.diag_size(t) if diag else n
+    per = MEGA_OPS[kernel]
+    return (n_bytes + 4 * n_bc + 4 * n * n_state + 4 * n_out,
+            per["cell"] * t.ne + per["seg"] * t.ns + per["reach"] * t.nr)
+
+
+def phase_mega_kernels(meshes, torch, mega, results, device_times):
+    """Each mega kernel against its plain version on the card: 32,768-cell,
+    8,192-cell lake and branched meshes, both boundary modes; bitwise
+    repeatable; per-call times at the main path's shapes."""
+    dev = torch.device(DEVICE)
+    err = {k: 0.0 for k in MEGA_REPLACES}
+    for name, md in meshes.items():
+        t = mega.build_mega_tables(md).to(dev)
+        fs, y, v = mega_slice(md, dev, seed=4)
+        f = mega.pack_forcing(t, fs)
+        for cb in (True, False):
+            outs = [mega.mega_rhs(t, f, y, cb), mega.mega_jvp(t, f, y, v, cb),
+                    mega.mega_diag(t, f, y, cb)]
+            again = [mega.mega_rhs(t, f, y, cb),
+                     mega.mega_jvp(t, f, y, v, cb), mega.mega_diag(t, f, y, cb)]
+            plain = [mega.mega_rhs_plain(t, f, y, cb),
+                     mega.mega_jvp_plain(t, f, y, v, cb),
+                     mega.mega_diag_plain(t, f, y, cb)]
+            torch.cuda.synchronize()
+            for kname, a, b in zip(MEGA_REPLACES, outs, again):
+                check(torch.equal(a, b), f"{kname} not bitwise repeatable")
+            ne, nr = t.ne, t.nr
+            cuts = {"sf": (0, ne), "us": (ne, 2 * ne), "gw": (2 * ne, 3 * ne),
+                    "riv": (3 * ne, 3 * ne + nr), "lake": (3 * ne + nr, None)}
+            worst = {}
+            for kname, k_out, p_out, bar in (
+                    ("mega_rhs", outs[0], plain[0], BAR_MEGA_RHS),
+                    ("mega_jvp", outs[1], plain[1], BAR_MEGA_JVP)):
+                errs = {fld: scaled_err(p_out[a:b], k_out[a:b])
+                        for fld, (a, b) in cuts.items()
+                        if p_out[a:b].numel()}
+                worst[kname] = max(errs.values())
+                check(worst[kname] <= bar,
+                      f"{kname} disagrees on {name} cb={cb}: {errs}")
+            kd, pd = mega.diag_dict(t, outs[2]), mega.diag_dict(t, plain[2])
+            errs = {k: scaled_err(pd[k], kd[k]) for k in pd}
+            worst["mega_diag"] = max(errs.values())
+            check(worst["mega_diag"] <= BAR_MEGA_RHS,
+                  f"mega_diag disagrees on {name} cb={cb}: {errs}")
+            same = all(torch.equal(a, b) for a, b in zip(outs, plain))
+            log(f"  {name} cb={cb}: scaled err " + " ".join(
+                f"{k} {e:.3e}" for k, e in worst.items())
+                + f"; bitwise repeatable; bitwise equal to plain {same}")
+            for kname, a, b in zip(MEGA_REPLACES, outs, plain):
+                err[kname] = max(err[kname], abs_err(b, a))
+
+    # per-call times at the main path's shapes and boundary mode (closed)
+    md = meshes["32k"]
+    t = mega.build_mega_tables(md).to(dev)
+    fs, y, v = mega_slice(md, dev, seed=4)
+    f = mega.pack_forcing(t, fs)
+    calls = {
+        "mega_rhs": (lambda: mega.mega_rhs(t, f, y, True),
+                     lambda: mega.mega_rhs_plain(t, f, y, True)),
+        "mega_jvp": (lambda: mega.mega_jvp(t, f, y, v, True),
+                     lambda: mega.mega_jvp_plain(t, f, y, v, True)),
+        "mega_diag": (lambda: mega.mega_diag(t, f, y, True),
+                      lambda: mega.mega_diag_plain(t, f, y, True)),
+    }
+    for name, (kern, plain) in calls.items():
+        timed(name, kern, plain, *mega_work(t, f, name), err[name], results,
+              device_times)
+
+
+def phase_mega_rhs(md, torch, mega):
+    """The RHS and its J·v per evaluation at 32,768 cells: the mega path
+    against the eager path with the edge kernels."""
+    from shud_tpu_torch.core.device import to_torch
+    from shud_tpu_torch.core.rhs import rhs
+
+    dev = torch.device(DEVICE)
+    fs, y, v = mega_slice(md, dev, seed=6)
+    t = mega.build_mega_tables(md).to(dev)
+    f = mega.pack_forcing(t, fs)
+    dm = to_torch(md, torch.float32, dev)
+    dy_m, dy_e = mega.rhs_mega(t, f, y, True), rhs(dm, fs, 0.0, y, True)
+    torch.cuda.synchronize()
+    e = scaled_err(dy_e, dy_m)
+    log(f"  32k rhs mega vs eager: dY scaled err {e:.3e}")
+    check(e <= BAR_RHS_PATHS, "the mega RHS disagrees with the eager RHS")
+
+    def jv_mega():
+        return torch.func.jvp(lambda yy: mega.rhs_mega(t, f, yy, True),
+                              (y,), (v,))[1]
+
+    def jv_eager():
+        return torch.func.jvp(lambda yy: rhs(dm, fs, 0.0, yy, True),
+                              (y,), (v,))[1]
+
+    out = {"rhs_mega_ms": time_ms(lambda: mega.rhs_mega(t, f, y, True)),
+           "rhs_eager_ms": time_ms(lambda: rhs(dm, fs, 0.0, y, True)),
+           "jvp_mega_ms": time_ms(jv_mega), "jvp_eager_ms": time_ms(jv_eager)}
+    log("  32k per evaluation: rhs mega %.4f ms, eager %.4f ms; J.v mega "
+        "%.4f ms, eager %.4f ms (CUDA events)" % (
+            out["rhs_mega_ms"], out["rhs_eager_ms"], out["jvp_mega_ms"],
+            out["jvp_eager_ms"]))
+    return out
+
 def expected_files(sim) -> set:
     """The file set run_project_fast writes for this configuration."""
     prj = sim.inp.paths.project
@@ -312,33 +562,37 @@ def expected_files(sim) -> set:
     return names
 
 
-def phase_main(inp, torch, edge, bdf, summary, outdir):
-    """Phase 6: the main path, run_project_fast in f32 on the card."""
+def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
+    """A main path: run_project_fast in f32 on the card from *start_min*
+    for *minutes*, every launch count set to 0 just before and read just
+    after.  Returns what it measured, the counts under "launches"."""
     import numpy as np
 
     from shud_tpu_torch.driver.run_fast import run_project_fast
 
-    minutes = summary["sim_minutes"]
-    edge.reset_launch_counts()
+    inp.control.day_start = start_min / 1440.0
+    end_min = start_min + minutes
+    for k in kernels:
+        k.reset_launch_counts()
     syncs0 = bdf.host_syncs
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim = run_project_fast("synthetic", inp=inp, end_day=minutes / 1440.0,
+    sim = run_project_fast("synthetic", inp=inp, end_day=end_min / 1440.0,
                            float_dtype=torch.float32, device=DEVICE,
                            outpath=outdir, verbose=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(edge.launch_counts)
+    counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
     syncs = bdf.host_syncs - syncs0
     ne = sim.md.num_ele
     nfe, nsteps = sim.bdf.nfe, sim.bdf.nsteps
-    log(f"  main path: {minutes:g} simulated minutes, nsteps {nsteps}, "
+    log(f"  main path: {ne} cells, simulated minutes {start_min:g}-"
+        f"{end_min:g}, nsteps {nsteps}, "
         f"nfe {nfe}, wall {wall:.2f} s, host syncs {syncs}")
     log(f"  cell-steps/s (NumEle x NFE / wall): {ne * nfe / wall:.6g}")
-    log(f"  launches: {counts}")
-    for name, n in counts.items():
-        check(n > 0, f"{name} was not launched on the main path")
-    check(float(sim.bdf.t) == minutes, f"stopped at t={sim.bdf.t}")
+    log(f"  launches: {counts}; per NFE "
+        + " ".join(f"{k} {n / nfe:.3f}" for k, n in counts.items()))
+    check(float(sim.bdf.t) == end_min, f"stopped at t={sim.bdf.t}")
     check(bool(np.isfinite(sim.y_np()).all()), "non-finite state")
     files = set(os.listdir(outdir))
     want = expected_files(sim)
@@ -351,53 +605,99 @@ def phase_main(inp, torch, edge, bdf, summary, outdir):
                 data = np.frombuffer(fh.read(), np.float64)
             check(data.size > 1 and bool(np.isfinite(data).all()),
                   f"{f}: empty or non-finite")
-    summary.update(nsteps=nsteps, nfe=nfe, wall_s=wall, host_syncs=syncs,
-                   cell_steps_per_s=ne * nfe / wall, num_ele=ne,
-                   output_files=len(files))
-    return counts
+    return dict(start_min=start_min, sim_minutes=minutes, nsteps=nsteps,
+                nfe=nfe, wall_s=wall, host_syncs=syncs,
+                cell_steps_per_s=ne * nfe / wall, num_ele=ne,
+                output_files=len(files), launches=counts,
+                mega=sim.mega is not None)
 
 
-def phase_paths(inp, torch, summary):
-    """Phases 7-8: kernel vs plain f32 over 6 windows; determinism.  Both
-    start at the storm's onset (minute 720), where the surface wets: before
-    it the surface is dry and the two paths agree trivially."""
+def storm_sim(inp, torch, float_dtype=None, **kw):
+    """A simulation from the storm's onset (minute 720), where the surface
+    wets: before it the surface is dry and any two paths agree trivially."""
     from shud_tpu_torch.driver.fused import FusedSimulation
 
-    def sim(**kw):
-        start = copy.deepcopy(inp)
-        start.control.day_start = 0.5
-        return FusedSimulation.create("synthetic", inp=start,
-                                      float_dtype=torch.float32,
-                                      device=DEVICE, **kw)
+    start = copy.deepcopy(inp)
+    start.control.day_start = 0.5
+    return FusedSimulation.create(
+        "synthetic", inp=start, float_dtype=float_dtype or torch.float32,
+        device=DEVICE, **kw)
 
-    a, b = sim(), sim(edge_kernel=False)
-    check(a.dm.edge_kernel and not b.dm.edge_kernel, "paths not as asked")
-    a.advance_interval(60.0)
-    b.advance_interval(60.0)
-    d = float((a.bdf.y.double() - b.bdf.y.double()).abs().max())
-    log(f"  6 storm windows kernel vs plain f32: max |dy| {d:.3e} m, nfe "
-        f"{a.bdf.nfe} vs {b.bdf.nfe}")
-    check(d < BAR_DRIVER, "kernel path drifts from the plain f32 path")
-    summary["six_window_max_dy"] = d
 
-    c, e = sim(), sim()
+def max_gap(a, b):
+    """max |a - b| over two states, and where: (gap, block, index)."""
+    d = (a.bdf.y.double() - b.bdf.y.double()).abs()
+    i = int(d.argmax())
+    ne, nr = a.md.num_ele, a.md.num_riv
+    cuts = ((3 * ne + nr, "lake", 3 * ne + nr), (3 * ne, "riv", 3 * ne),
+            (2 * ne, "gw", 2 * ne), (ne, "us", ne), (0, "sf", 0))
+    block, off = next((n, o) for lo, n, o in cuts if i >= lo)
+    return float(d[i]), block, i - off
+
+
+def phase_paths(inp, torch, paths: dict, gated: dict, what: str):
+    """Storm windows on several paths side by side: 6 windows of 10
+    minutes from the storm's onset, window by window.  *paths* maps a name
+    to FusedSimulation.create's keywords, the kernel path first.  After
+    each window, max |dy| of every pair of paths, and where.  Each pair
+    "a-b" in *gated* is held to |dy| < 2e-5 m after every window; a pair
+    gated with the name of another pair only after the windows where that
+    pair (the reference path in float32 and float64) is itself within
+    2e-5 m.  NFE of each path within 2% of the kernel path's.  Wall and
+    cell-steps/s of each; then one window twice on the kernel path,
+    bitwise identical."""
+    sims = {n: storm_sim(inp, torch, **kw) for n, kw in paths.items()}
+    names = list(sims)
+    pairs = [(a, b) for i, a in enumerate(names) for b in names[i + 1:]]
+    walls = dict.fromkeys(names, 0.0)
+    windows = []
+    for w in range(STORM_WINDOWS):
+        for name, sim in sims.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.advance_interval(10.0)
+            torch.cuda.synchronize()
+            walls[name] += time.perf_counter() - t0
+        gaps = {f"{a}-{b}": max_gap(sims[a], sims[b]) for a, b in pairs}
+        log(f"  {what}, window {w}: max |dy| " + ", ".join(
+            f"{k} {g:.3e} m ({blk} {i})" for k, (g, blk, i) in gaps.items()))
+        for pair, unless in gated.items():
+            if unless is not None and gaps[unless][0] >= BAR_DRIVER:
+                log(f"    {pair} not gated: {unless} {gaps[unless][0]:.3e} m")
+                continue
+            check(gaps[pair][0] < BAR_DRIVER,
+                  f"{what}: {pair} parts by {gaps[pair][0]:.3e} m "
+                  f"(window {w})")
+        windows.append({k: g[0] for k, g in gaps.items()})
+    kernel = sims[names[0]]
+    out = {n: {"wall_s": walls[n], "nfe": s.bdf.nfe,
+               "cell_steps_per_s": s.md.num_ele * s.bdf.nfe / walls[n]}
+           for n, s in sims.items()}
+    log(f"  {what}: nfe " + ", ".join(f"{n} {o['nfe']}" for n, o in out.items())
+        + "; wall " + ", ".join(f"{n} {o['wall_s']:.3f} s"
+                                for n, o in out.items())
+        + f"; {names[0]}-{names[1]} bitwise equal "
+        f"{torch.equal(kernel.bdf.y, sims[names[1]].bdf.y)}")
+    for name, sim in sims.items():
+        check(abs(sim.bdf.nfe - kernel.bdf.nfe) <= 0.02 * sim.bdf.nfe,
+              f"{what}: NFE of {name} differs by more than 2%")
+    out["max_dy"] = windows
+
+    c, e = (storm_sim(inp, torch, **paths[names[0]]) for _ in range(2))
     c.advance_interval(10.0)
     e.advance_interval(10.0)
     same = torch.equal(c.bdf.y, e.bdf.y) and c.bdf.nfe == e.bdf.nfe
     log(f"  one storm window twice on the kernel path: bitwise equal {same}")
     check(same, "kernel path is not deterministic")
+    return out
 
 
-def phase_profile(inp, torch, summary):
-    """Phase 9: where one storm window's time goes (torch.profiler)."""
+def phase_profile(inp, torch, **kw):
+    """Where one storm window's time goes (torch.profiler): device busy
+    time, idle share, launches per NFE, kernel time by name."""
     from torch.profiler import ProfilerActivity, profile
 
-    from shud_tpu_torch.driver.fused import FusedSimulation
-
-    start = copy.deepcopy(inp)
-    start.control.day_start = 0.5
-    sim = FusedSimulation.create("synthetic", inp=start,
-                                 float_dtype=torch.float32, device=DEVICE)
+    sim = storm_sim(inp, torch, **kw)
     sim.advance_interval(10.0)
     torch.cuda.synchronize()
     nfe0 = sim.bdf.nfe
@@ -410,24 +710,27 @@ def phase_profile(inp, torch, summary):
     rows = [(r.key, _self_device_us(r), r.count) for r in prof.key_averages()]
     busy_s = sum(us for _, us, _ in rows) / 1e6
     top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:10]
+    nfe = sim.bdf.nfe - nfe0
+    launches = sum(c for _, us, c in rows if us > 0)
     prof_summary = {
-        "window_wall_s": wall, "nfe": sim.bdf.nfe - nfe0,
-        "device_busy_s": busy_s,
+        "window_wall_s": wall, "nfe": nfe, "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / wall) if busy_s > 0 else None,
-        "kernel_launches": sum(c for _, us, c in rows if us > 0),
+        "kernel_launches": launches, "launches_per_nfe": launches / nfe,
         "top_device_ms": {k[:60]: round(us / 1e3, 3) for k, us, _ in top},
     }
-    log(f"  one storm window under the profiler: wall {wall:.3f} s, device "
-        f"busy {busy_s:.3f} s, idle share {prof_summary['device_idle_share']}")
+    log(f"  one storm window under the profiler: wall {wall:.3f} s, nfe "
+        f"{nfe}, device busy {busy_s:.3f} s, idle share "
+        f"{prof_summary['device_idle_share']}, {launches} launches "
+        f"({launches / nfe:.1f} per NFE)")
     for k, us, c in top:
         log(f"    {us / 1e3:9.3f} ms  {c:6d}x  {k[:70]}")
-    summary["profile"] = prof_summary
+    return prof_summary
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-minutes", type=float, default=1440.0,
-                    help="simulated span of the main-path run (minutes)")
+                    help="simulated span of each main-path run (minutes)")
     args = ap.parse_args()
 
     import torch
@@ -435,14 +738,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not (ROOT / "shud_tpu_torch" / "csrc" / "edge_flux.cu").is_file():
+    if not all((ROOT / src).is_file() for src in (EDGE_SOURCE, MEGA_SOURCE)):
         print("chip_smoke: shud_tpu_torch is not next to this script",
               file=sys.stderr)
         return 2
+    sys.path.insert(0, str(ROOT / "tests"))  # torch_variants: shared inputs
 
-    from shud_tpu_torch.core import edge
+    from torch_variants import branch_rivers, with_bc
+
+    from shud_tpu_torch.core import cuda_build, edge, mega
     from shud_tpu_torch.core.mesh import build_mesh
     from shud_tpu_torch.solver import bdf
+    from shud_tpu_torch.utils.synthetic import make_synthetic_project
 
     # phase 1: the card
     smi = subprocess.run(
@@ -456,50 +763,93 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     summary = {"card": smi, "sim_minutes": args.sim_minutes}
 
-    # phase 2: build the kernels
-    lib = edge.build_library()
-    log(f"kernels built in {edge.build_info['seconds']:.2f} s: "
-        f"{edge.build_info['path']}")
-    for line in edge.build_info["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+    # phase 2: build the kernels (both sources, one nvcc each, in parallel)
+    lib = cuda_build.load_library()
+    info = cuda_build.build_info
+    log(f"kernels built in {info['seconds']:.2f} s: {info['path']}")
+    for line in info["ptxas"].splitlines():
+        if any(w in line for w in ("registers", "Compiling entry", "spill")):
             log("  " + line.strip())
     check(lib is not None, "no kernel library")
-    summary["build_s"] = edge.build_info["seconds"]
+    summary["build_s"] = info["seconds"]
 
-    # phase 3: the 131,072-cell mesh
+    # phase 3: the meshes
     t0 = time.perf_counter()
-    inp = storm_project(256, 256, end_day=max(1.0, args.sim_minutes / 1440))
-    for name in vars(inp.control):
-        if name.startswith("dt_"):
-            setattr(inp.control, name, 1440)
-    md = build_mesh(inp)
-    lake_md = build_mesh(storm_project(64, 64, 1.0, with_lake=True,
+    days = max(1.0, args.sim_minutes / 1440)
+    inp = storm_project(*EDGE_MESH, end_day=days)
+    inp32 = storm_project(*MEGA_MESH, end_day=days)
+    for p, per_edge in ((inp, 1440), (inp32, 0)):
+        for name in vars(p.control):
+            if name.startswith("dt_"):
+                setattr(p.control, name, 1440)
+        # the per-edge flux channels need rhs_full's [Ne,3] fluxes, which
+        # take the window diagnostics off the mega kernel (as in JAX)
+        p.control.dt_Qe_subx = p.control.dt_Qe_surfx = per_edge
+    md, md32 = build_mesh(inp), build_mesh(inp32)
+    lake_md = build_mesh(storm_project(*LAKE_MESH, 1.0, with_lake=True,
                                        localize=False))
+    branched_md = with_bc(build_mesh(branch_rivers(
+        make_synthetic_project(*MEGA_MESH), MEGA_MESH[0])))
     summary["setup_s"] = time.perf_counter() - t0
-    log(f"mesh: {md.num_ele} cells, {md.num_riv} reaches, {md.num_seg} "
-        f"segments; lake mesh {lake_md.num_ele} cells, {lake_md.num_lake} "
-        f"lake; set-up {summary['setup_s']:.2f} s")
-    check(md.num_ele == 131072, "wrong mesh size")
+    log(f"meshes: {md.num_ele} cells, {md.num_riv} reaches, {md.num_seg} "
+        f"segments; {md32.num_ele} cells, {md32.num_riv} reaches; lake mesh "
+        f"{lake_md.num_ele} cells, {lake_md.num_lake} lake; branched "
+        f"{branched_md.num_ele} cells, {branched_md.num_riv} reaches, "
+        f"{branched_md.num_seg} segments; set-up {summary['setup_s']:.2f} s")
+    check(md.num_ele == 2 * EDGE_MESH[0] * EDGE_MESH[1]
+          and md32.num_ele == 2 * MEGA_MESH[0] * MEGA_MESH[1],
+          "wrong mesh size")
+    check(mega.build_mega_tables(md) is None, "131k mesh on the mega path")
 
-    log("phase 4: kernels vs plain versions")
     results, device_times = {}, {}
+    log("phase 4: edge kernels vs plain versions (131k)")
     phase_kernels(md, torch, edge, results, device_times)
+    log("phase 5: mega kernels vs plain versions (32k, lake, branched)")
+    phase_mega_kernels({"32k": md32, "lake8k": lake_md,
+                        "branched": branched_md}, torch, mega, results,
+                       device_times)
     summary["kernel_device_ms"] = device_times
-    log("phase 5: full RHS with vs without kernels")
+    log("phase 6: full RHS and J.v")
     phase_rhs(md, lake_md, torch, summary)
-    log("phase 6: main path (run_project_fast, f32, cuda)")
-    with tempfile.TemporaryDirectory(prefix="shud_smoke_") as outdir:
-        counts = phase_main(copy.deepcopy(inp), torch, edge, bdf, summary,
-                            outdir)
-    log("phases 7-8: kernel vs plain driver path, determinism")
-    phase_paths(inp, torch, summary)
-    log("phase 9: profile of one storm window")
-    phase_profile(inp, torch, summary)
+    summary["mega_rhs_32k"] = phase_mega_rhs(md32, torch, mega)
+
+    log("phase 7: the main paths (run_project_fast, f32, cuda)")
+    counts = {}
+    for name, p, want, absent, start, span in (
+            ("edge_131k", inp, edge, mega, *EDGE_MAIN_SPAN),
+            ("mega_32k", inp32, mega, edge, 0.0, args.sim_minutes)):
+        with tempfile.TemporaryDirectory(prefix="shud_smoke_") as outdir:
+            run = phase_main(copy.deepcopy(p), torch, (edge, mega), bdf,
+                             min(span, args.sim_minutes), outdir, start)
+        for k in want.launch_counts:
+            check(run["launches"][k] > 0, f"{k} not launched on {name}")
+        for k in absent.launch_counts:
+            check(run["launches"][k] == 0, f"{k} launched on {name}")
+        check(run["mega"] == (want is mega), f"{name}: wrong RHS path")
+        counts.update({k: run["launches"][k] for k in want.launch_counts})
+        summary[f"main_{name}"] = run
+
+    log("phase 8: kernel paths vs reference paths, determinism")
+    summary["paths_edge_131k"] = phase_paths(
+        inp, torch, {"kernel": {}, "plain": {"edge_kernel": False}},
+        {"kernel-plain": None}, "131k edge kernels vs plain")
+    summary["paths_mega_32k"] = phase_paths(
+        inp32, torch, {"kernel": {}, "plain": {"mega_kernel": False},
+                       "eager": {"mega": False},
+                       "eager64": {"mega": False,
+                                   "float_dtype": torch.float64}},
+        {"kernel-plain": None, "kernel-eager": "eager-eager64"},
+        "32k mega")
+    log("phase 9: profile of one storm window on each path")
+    summary["profile_edge_131k"] = phase_profile(inp, torch)
+    summary["profile_mega_32k"] = phase_profile(inp32, torch)
 
     log(json.dumps({"summary": summary}))
-    kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=counts[name],
-                    **results[name]) for name in REPLACES]
+    kernels = [dict(name=name, route="cuda", source=src, replaces=rep[name],
+                    launches=counts[name], **results[name])
+               for src, rep in ((EDGE_SOURCE, REPLACES),
+                                (MEGA_SOURCE, MEGA_REPLACES))
+               for name in rep]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -99,10 +99,10 @@ def gather_sum(values: torch.Tensor, lists: torch.Tensor) -> torch.Tensor:
     return padded[lists].sum(dim=1)
 
 
-def to_torch(md, dtype: torch.dtype = torch.float64,
-             device: "str | torch.device" = "cpu",
+def to_torch(md, dtype: torch.dtype, device: "str | torch.device",
              edge_kernel: "bool | None" = None) -> TorchMesh:
-    """Move a host mesh to *device*: floats to *dtype*, indices to long.
+    """Move a host mesh to *device* (no default: the caller says where):
+    floats to *dtype*, indices to long.
 
     ``edge_kernel`` (default: on exactly for float32 on CUDA) routes
     ``rhs.edge_fluxes`` through the CUDA edge-flux kernels; it is refused

@@ -29,18 +29,10 @@ reference's XLA path.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
-
 import torch
 
 from shud_tpu_torch.config import MAXYSURF
+from shud_tpu_torch.core.cuda_build import load_library
 from shud_tpu_torch.core.physics import (
     _TINY, absolute, cbrt, maximum, minimum, pow23)
 
@@ -217,69 +209,14 @@ def edge_apply_plain(coeffs, tsf, tgw, tkh, et):
 # CUDA build and launch
 # ---------------------------------------------------------------------------
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "edge_flux.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-_LIB = None
-build_info: dict = {}  # path, seconds and ptxas report of the last build
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def build_library() -> ctypes.CDLL:
-    """Compile ``csrc/edge_flux.cu`` for sm_90a (once per source hash) into
-    ``build/`` and load it.  Raises with nvcc's output if the build fails."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libshud_edge_{digest[:16]}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except FileNotFoundError as exc:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc not found: {cmd[0]}") from exc
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
-        log = proc.stderr + proc.stdout
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.shud_edge_flux.argtypes = [p] * 16 + [i, i, p]
-    lib.shud_edge_coeff.argtypes = [p] * 22 + [i, i, p]
-    lib.shud_edge_apply.argtypes = [p] * 12 + [i, p]
-    for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply):
-        fn.restype = ctypes.c_int
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      ptxas=log)
-    _LIB = lib
-    return lib
-
-
-def _on_cpu(*tensors) -> bool:
+def on_cpu(*tensors, what: str = "edge kernels") -> bool:
+    """True for CPU tensors (the plain versions run), False for CUDA ones
+    (the kernel launches); anything else is refused."""
     devs = {t.device.type for t in tensors}
     if devs == {"cpu"}:
         return True
     if devs != {"cuda"}:
-        raise ValueError(f"edge kernels take CPU or CUDA tensors, got {devs}")
+        raise ValueError(f"{what} take CPU or CUDA tensors, got {devs}")
     return False
 
 
@@ -332,7 +269,7 @@ def _table_list(et):
 def _edge_flux_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
                   tables: list[torch.Tensor],
                   close_boundary: bool) -> list[torch.Tensor]:
-    lib = build_library()
+    lib = load_library()
     outs = [torch.empty_like(tables[1]) for _ in range(2)]
     err = lib.shud_edge_flux(*_ptrs(sf, gw, kh, *tables, *outs),
                              sf.shape[0], int(close_boundary), _stream())
@@ -346,7 +283,7 @@ def _edge_flux_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
 def _edge_coeff_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
                    tables: list[torch.Tensor],
                    close_boundary: bool) -> list[torch.Tensor]:
-    lib = build_library()
+    lib = load_library()
     outs = [torch.empty_like(tables[1]) for _ in range(8)]
     err = lib.shud_edge_coeff(*_ptrs(sf, gw, kh, *tables, *outs),
                               sf.shape[0], int(close_boundary), _stream())
@@ -360,7 +297,7 @@ def _edge_coeff_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
 def _edge_apply_op(tsf: torch.Tensor, tgw: torch.Tensor, tkh: torch.Tensor,
                    nabr: torch.Tensor,
                    coeffs: list[torch.Tensor]) -> list[torch.Tensor]:
-    lib = build_library()
+    lib = load_library()
     outs = [torch.empty_like(coeffs[0]) for _ in range(2)]
     err = lib.shud_edge_apply(*_ptrs(tsf, tgw, tkh, nabr, *coeffs, *outs),
                               tsf.shape[0], _stream())
@@ -371,7 +308,7 @@ def _edge_apply_op(tsf: torch.Tensor, tgw: torch.Tensor, tkh: torch.Tensor,
 
 def edge_flux(sf, gw, kh, et, close_boundary: bool):
     """Primal edge fluxes ``(q_surf, q_sub)`` [Ne,3]."""
-    if _on_cpu(sf, gw, kh, et.dep):
+    if on_cpu(sf, gw, kh, et.dep):
         return edge_flux_plain(sf, gw, kh, et, close_boundary)
     _check(et, [("sf", sf), ("gw", gw), ("kh", kh)])
     return tuple(_edge_flux_op(sf, gw, kh, _table_list(et),
@@ -380,7 +317,7 @@ def edge_flux(sf, gw, kh, et, close_boundary: bool):
 
 def edge_coeff(sf, gw, kh, et, close_boundary: bool):
     """Primal fluxes plus the six coefficient arrays, eight [Ne,3]."""
-    if _on_cpu(sf, gw, kh, et.dep):
+    if on_cpu(sf, gw, kh, et.dep):
         return edge_coeff_plain(sf, gw, kh, et, close_boundary)
     _check(et, [("sf", sf), ("gw", gw), ("kh", kh)])
     return tuple(_edge_coeff_op(sf, gw, kh, _table_list(et),
@@ -389,7 +326,7 @@ def edge_coeff(sf, gw, kh, et, close_boundary: bool):
 
 def edge_apply(coeffs, tsf, tgw, tkh, et):
     """J·v through the coefficients: ``(tq_surf, tq_sub)`` [Ne,3]."""
-    if _on_cpu(tsf, tgw, tkh, et.dep):
+    if on_cpu(tsf, tgw, tkh, et.dep):
         return edge_apply_plain(coeffs, tsf, tgw, tkh, et)
     names = ("s_i", "s_j", "g1", "g2", "k_i", "k_j")
     _check(et, [("tsf", tsf), ("tgw", tgw), ("tkh", tkh)]

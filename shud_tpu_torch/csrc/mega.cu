@@ -1,0 +1,1043 @@
+// The whole right-hand side for Hopper (sm_90a), with a plain C interface.
+//
+// It replaces the Pallas TPU megakernels of shud_tpu/core/pallas_mega.py:
+//   shud_mega_rhs   <- _mega_kernel       (dY/dt of the flat state)
+//   shud_mega_jvp   <- _mega_kernel_jvp   (hand tangent J.v, recomputing
+//                                          the primal)
+//   shud_mega_diag  <- _mega_diag_kernel  (the window diagnostics)
+// All three run one templated device path, <with_tangent, want_diag>, as
+// _mega_core serves the three Pallas kernels.  Their plain PyTorch versions
+// are in shud_tpu_torch/core/mega.py (same stages, same tie conventions:
+// 0.5 at min/max ties, sign(0) = 0 for abs), which builds this file with
+// nvcc and binds it with ctypes.  Every expression keeps the plain
+// version's order of operations and calls the CUDA math function PyTorch
+// calls (expf, logf, powf, sqrtf, cosf, sinf; the cube root as
+// physics.cbrt), and the build fuses no multiply-add (--fmad=false), so a
+// kernel returns its plain version's result to the last bit: a solve on
+// the kernels follows the solve on the plain versions exactly, even where
+// a storm brings cells to a threshold and any other rounding would part.
+//
+// Design (a): each entry point enqueues three phase kernels on the given
+// stream, because the stages depend across threads and Hopper blocks
+// cannot see each other within a launch:
+//   A  cells and reaches, pointwise: BC overlay, effective conductivity,
+//      ET, infiltration, recharge; river geometry and the downstream
+//      discharge (both stages are read straight from the state);
+//   B  per cell its three edges (surface, subsurface, open boundary, lake
+//      bank) summed in slot order; per segment the weir and Darcy laws;
+//   C  per cell, reach and lake the fixed-width reductions, each list
+//      summed in ascending order from 0 (no atomics, so every output is
+//      bitwise repeatable), the lake bucket, and the assembly.
+// Intermediates live in one scratch buffer the wrapper allocates
+// (shud_mega_scratch_floats); at 32,768 cells it is a few MB, well inside
+// the 50 MB L2.  One Python->C call per evaluation.
+//
+// What bounds them: memory.  One evaluation at 32,768 cells with a closed
+// boundary and no lake reads about 7.9 MB of tables, forcing and state
+// once and writes the state-sized result (8.5 MB for the diagnostics;
+// chip_smoke.py's mega_work counts what each kernel reads); at 3.35 TB/s
+// that is 2.4-2.5 us, and the few hundred flops per cell are far below
+// the 67 TFLOP/s f32 peak.  In practice a
+// call is bound by its three launches and the dependent gathers (a cell's
+// neighbours, a segment's cell): one thread per entity, plain global
+// loads, no shared-memory staging, no TMA.  Making it fast is later work.
+//
+// Each entry point returns cudaGetLastError(); the caller allocates every
+// output and the scratch.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kTiny = 1.0e-30f;      // _TINY
+constexpr float kZero = 1.0e-10f;      // config.ZERO
+constexpr float kEpsilon = 0.005f;     // config.EPSILON
+constexpr float kGrav = 9.8f;          // config.GRAV
+constexpr float kMaxYSurf = 0.5f;      // config.MAXYSURF
+constexpr float kEpsSlope = 0.05e-6f;  // mega._EPS_SLOPE
+constexpr float kPi = 3.1415926f;      // the reference's truncated pi
+constexpr int kThreads = 256;
+
+// field orders: mega.py CELL_F, CELL_I, EDGE_F, EDGE_I, SEG_F, SEG_I,
+// RIV_F, RIV_I, FORC_CELL, FORC_RIV
+enum CellF {
+  AREA, SY, AQ_DEPTH, INF_D, INF_KSAT_V, KSAT_V, KSAT_H, MAC_KSAT_V,
+  MAC_KSAT_H, MAC_D, H_AREA_F, GEO_V_AREA_F, THETA_S, THETA_R, THETA_FC,
+  BETA, VEG_FRAC, IMP_AF, WETLAND_LEVEL, ROOTREACH_LEVEL, DEPRESSION, ROUGH
+};
+enum CellI { IBC_POS, IBC_NEG, ISS_POS, ISS_NEG, IS_LAKE };
+enum EdgeF { E_B, E_DIST, E_RAVG, E_DZS, E_DZB, E_D2E, E_LK_DZL, E_LK_DZB };
+enum EdgeI { E_NBQ, E_M_INT, E_M_BND, E_M_LAKE, E_LK_ID };
+enum SegF { S_LENGTH, S_CWR, S_DEP_E, S_ZR_LOC, S_NEG_DEPTH, S_KSAT_RIV,
+            S_BED_THICK };
+enum SegI { S_SE, S_SR };
+enum RivF { R_BANK_SLOPE, R_BOTTOM_WIDTH, R_LENGTH, R_BED_SLOPE,
+            R_DIST2DOWN, R_AVG_ROUGH, R_DEPTH, R_DEPTH_DN, R_S_MEAN };
+enum RivI { R_HAS_DOWN, R_DN, R_CRIT_OUT, R_TO_LAKE, R_LAKE_ID, R_BC_POS };
+enum ForcCell { F_NET_PRCP, F_POT_EVAP, F_POT_TRAN, F_E_IC, F_LAI,
+                F_FU_SURF, F_FU_SUB, F_ELE_YBC, F_ELE_QBC, F_ELE_QSS };
+enum ForcRiv { F_RIV_YBC, F_RIV_QBC };
+
+// scratch: per cell (tangent copies follow at +kCellFields), per reach,
+// per segment, and per edge on lake meshes
+enum ScratchCell { C_GW, C_KH, C_ACELL, C_QINF, C_QEXF, C_QRECH, C_ES,
+                   C_EU, C_EG, C_TU, C_TG, C_OWN_SURF, C_OWN_SUB,
+                   kCellFields };
+enum ScratchSeg { G_SURF, G_SUB, G_T_SURF, G_T_SUB, kSegFields };
+enum ScratchEdge { L_SURF, L_SUB, L_T_SURF, L_T_SUB, kEdgeFields };
+constexpr int kDiagCell = 13, kDiagRiv = 4;
+
+struct Args {
+  const float* cell_f; const int* cell_i;
+  const float* edge_f; const int* edge_i;
+  const float* seg_f; const int* seg_i;
+  const float* riv_f; const int* riv_i;
+  const int* seg_to_ele; const int* seg_to_riv; const int* riv_up;
+  const int* edge_to_lake; const int* riv_to_lake;
+  const float* lake_zmin; const float* bathy_y; const float* bathy_a;
+  const float* fcell; const float* friv; const float* segfu;
+  const float* flake;
+  const float* y; const float* ty;
+  float* out; float* s;
+  int ne, nr, ns, nl, kc, kr, kup, kel, krl, kb, close_boundary;
+
+  __device__ float cf(int f, int i) const { return cell_f[f * ne + i]; }
+  __device__ bool ci(int f, int i) const { return cell_i[f * ne + i] > 0; }
+  __device__ float fc(int f, int i) const { return fcell[f * ne + i]; }
+  __device__ float rf(int f, int r) const { return riv_f[f * nr + r]; }
+  __device__ int ri(int f, int r) const { return riv_i[f * nr + r]; }
+  __device__ float sfl(int f, int k) const { return seg_f[f * ns + k]; }
+  // scratch addressing
+  __device__ float& sc(int f, int i) const { return s[f * ne + i]; }
+  __device__ float& sr(int f, int r) const {
+    return s[2 * kCellFields * ne + f * nr + r];
+  }
+  __device__ float& sg(int f, int k) const {
+    return s[2 * kCellFields * ne + 2 * nr + f * ns + k];
+  }
+  __device__ float& se(int f, int e) const {
+    return s[2 * kCellFields * ne + 2 * nr + kSegFields * ns + f * 3 * ne +
+             e];
+  }
+  // river stage after the BC overlay, and its tangent
+  __device__ float rstage(int r) const {
+    return ri(R_BC_POS, r) > 0 ? friv[F_RIV_YBC * nr + r] : y[3 * ne + r];
+  }
+  __device__ float t_rstage(int r) const {
+    return ri(R_BC_POS, r) > 0 ? 0.f : ty[3 * ne + r];
+  }
+};
+
+// ---------------------------------------------------------------------------
+// helpers (mega.py: _powp, _cbrt_pos, _pow23, _dmax0, _dmin, _dmax, _dabs)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float powp(float x, float p) {
+  return expf(p * logf(x));
+}
+// physics.cbrt: powf and one Newton step, as the plain versions round it
+__device__ __forceinline__ float cbrt_pos(float x) {
+  const float xs = fmaxf(x, kTiny);
+  const float t = powf(xs, 1.f / 3.f);
+  return (2.f * t + xs / (t * t)) * (1.f / 3.f);
+}
+__device__ __forceinline__ float pow23(float x) {
+  float t = cbrt_pos(x);
+  return t * t;
+}
+__device__ __forceinline__ float dmax0(float x, float tx) {
+  return x > 0.f ? tx : (x == 0.f ? 0.5f * tx : 0.f);
+}
+__device__ __forceinline__ float dmin(float a, float b, float ta, float tb) {
+  return a < b ? ta : (a == b ? 0.5f * (ta + tb) : tb);
+}
+__device__ __forceinline__ float dmax(float a, float b, float ta, float tb) {
+  return a > b ? ta : (a == b ? 0.5f * (ta + tb) : tb);
+}
+__device__ __forceinline__ float dabs(float x, float tx) {
+  return x > 0.f ? tx : (x < 0.f ? -tx : 0.f);
+}
+
+__device__ __forceinline__ float manning(float area, float rough, float r,
+                                         float s) {
+  float q_pos = sqrtf(fmaxf(fabsf(s), kTiny)) * area * pow23(r) / rough;
+  return s > 0.f ? q_pos : -q_pos;
+}
+
+__device__ __forceinline__ float manning_t(float area, float rough, float r,
+                                           float s, float t_area, float t_r,
+                                           float t_s) {
+  float abs_s = fabsf(s);
+  float sq = sqrtf(fmaxf(abs_s, kTiny));
+  float t_sq = abs_s > kTiny ? dabs(s, t_s) / (2.f * sq) : 0.f;
+  float p23 = pow23(r);
+  float t_p23 = r > kTiny ? (2.f / 3.f) * t_r / cbrt_pos(r) : 0.f;
+  float t_qpos =
+      (t_sq * area * p23 + sq * t_area * p23 + sq * area * t_p23) / rough;
+  return s > 0.f ? t_qpos : -t_qpos;
+}
+
+// ---------------------------------------------------------------------------
+// phase A: cells (update_element, ET, infiltration, recharge) and reaches
+// ---------------------------------------------------------------------------
+
+template <bool T>
+__device__ void cell_pointwise(const Args& a, int i) {
+  const int ne = a.ne;
+  const bool ibc_pos = a.ci(IBC_POS, i);
+  const bool is_lake = a.nl > 0 && a.ci(IS_LAKE, i);
+  const float sf = a.y[i], us = a.y[ne + i];
+  const float gw = ibc_pos ? a.fc(F_ELE_YBC, i) : a.y[2 * ne + i];
+  float t_sf = 0.f, t_us = 0.f, t_gw = 0.f;
+  if constexpr (T) {
+    t_sf = a.ty[i];
+    t_us = a.ty[ne + i];
+    t_gw = ibc_pos ? 0.f : a.ty[2 * ne + i];
+  }
+
+  // update_element (Element.cpp:347-384)
+  const float aqd = a.cf(AQ_DEPTH, i), mac_d = a.cf(MAC_D, i);
+  const float af = a.cf(GEO_V_AREA_F, i);
+  const float k_mx = a.cf(KSAT_H, i), k_mac = a.cf(MAC_KSAT_H, i);
+  const bool below = (mac_d <= kZero) || (gw < aqd - mac_d);
+  const float full = (k_mac * mac_d * af + k_mx * (aqd - mac_d * af)) / aqd;
+  const float part_num = k_mac * (gw - (aqd - mac_d)) * af +
+                         k_mx * (aqd - mac_d + (gw - (aqd - mac_d)) * (1.f - af));
+  const float gw_safe = gw == 0.f ? 1.f : gw;
+  const float part = part_num / gw_safe;
+  float effkh = below ? k_mx : (gw > aqd ? full : part);
+
+  const float deficit_raw = aqd - gw;
+  const float ikv = a.cf(INF_KSAT_V, i), haf = a.cf(H_AREA_F, i);
+  const float mkv = a.cf(MAC_KSAT_V, i);
+  const float kmax = ikv * (1.f - haf) + mkv * haf;
+  const bool saturated = deficit_raw <= 0.f;
+  const float deficit = fmaxf(deficit_raw, 0.f);
+  const float ts = a.cf(THETA_S, i), tr = a.cf(THETA_R, i);
+  const float theta_raw = us / (saturated ? 1.f : deficit) * ts;
+  const float theta0 = saturated ? ts : theta_raw;
+  const float satn_pre = saturated ? 1.f : (theta0 - tr) / (ts - tr);
+  const bool hi = satn_pre > 0.99f, lo = satn_pre <= kZero;
+  const float satn_mid = fminf(fmaxf(satn_pre, 1e-12f), 1.f - 1e-12f);
+  const float n = a.cf(BETA, i);
+  const float p1 = n / (n - 1.f), p2 = (n - 1.f) / n;
+  const float inner = powp(satn_mid, p1);
+  const float omi = fmaxf(1.f - inner, kTiny);
+  const float temp = -1.f + powp(omi, p2);
+  const float sat_kr_mid = sqrtf(satn_mid) * temp * temp;
+  const float satn = hi ? 1.f : (lo ? 0.f : satn_pre);
+  const float sat_kr = hi ? 1.f : (lo ? 0.f : sat_kr_mid);
+  const float theta = hi ? ts : (lo ? tr : theta0);
+
+  float t_effkh = 0.f, t_deficit = 0.f, t_satn = 0.f, t_sat_kr = 0.f;
+  float t_theta = 0.f;
+  if constexpr (T) {
+    const float pn = part * gw_safe;
+    const float t_part_num = (k_mac * af + k_mx * (1.f - af)) * t_gw;
+    const float t_part =
+        gw == 0.f ? 0.f
+                  : (t_part_num * gw_safe - pn * t_gw) / (gw_safe * gw_safe);
+    t_effkh = below ? 0.f : (gw > aqd ? 0.f : t_part);
+    t_deficit = dmax0(deficit_raw, -t_gw);
+    const float den = saturated ? 1.f : fmaxf(deficit_raw, 0.f);
+    const float t_th =
+        saturated ? 0.f : (t_us * den - us * t_deficit) / (den * den) * ts;
+    const float t_sn = saturated ? 0.f : t_th / (ts - tr);
+    const bool in_rng = (satn_pre >= 1e-12f) && (satn_pre <= 1.f - 1e-12f);
+    const float t_smid = in_rng ? t_sn : 0.f;
+    const float t_inner = p1 * inner / satn_mid * t_smid;
+    const float t_omi = (1.f - inner > kTiny) ? -t_inner : 0.f;
+    const float t_temp = p2 * powp(omi, p2) / omi * t_omi;
+    const float t_skr = (0.5f / sqrtf(satn_mid)) * t_smid * temp * temp +
+                        sqrtf(satn_mid) * 2.f * temp * t_temp;
+    const bool hl = hi || lo;
+    t_satn = hl ? 0.f : t_sn;
+    t_sat_kr = hl ? 0.f : t_skr;
+    t_theta = hl ? 0.f : t_th;
+  }
+  if (is_lake) {  // updateLakeElement (Element.cpp:373-383)
+    effkh = k_mx;
+    t_effkh = 0.f;
+  }
+
+  // ET (MD_ET.cpp:343-404)
+  const float va = a.cf(VEG_FRAC, i), vb = 1.f - va;
+  const float pj = 1.f - a.cf(IMP_AF, i);
+  const float fcap = ts * 0.75f;
+  const float beta_raw = (satn * (ts - tr) - tr) / (fcap - tr);
+  const float beta_s = fminf(fmaxf(beta_raw, 0.f), 1.f);
+  const float ibeta = 0.5f * (1.f - cosf(kPi * beta_s));
+  const float pe = a.fc(F_POT_EVAP, i);
+  const float sf0 = fmaxf(sf, 0.f);
+  const float es = fminf(sf0, pe) * vb;
+  const float rem = pe - es;
+  const bool some_left = es < pe;
+  const bool gw_high = gw > a.cf(WETLAND_LEVEL, i);
+  const float gw0 = fmaxf(gw, 0.f), us0 = fmaxf(us, 0.f);
+  const float eg = (some_left && gw_high) ? fminf(gw0, rem) * pj * vb : 0.f;
+  const float eu =
+      (some_left && !gw_high) ? fminf(us0, ibeta * rem) * pj * vb : 0.f;
+  const float pot_tran = a.fc(F_POT_TRAN, i), e_ic = a.fc(F_E_IC, i);
+  const bool has_veg = a.fc(F_LAI, i) > kZero;
+  const bool ic_dom = e_ic >= pot_tran;
+  const bool root_deep = gw > a.cf(ROOTREACH_LEVEL, i);
+  const float ptr = pot_tran - e_ic;
+  const bool act_t = has_veg && !ic_dom;
+  const float tg = (act_t && root_deep) ? fminf(gw0, ptr) * pj * va : 0.f;
+  const float tu =
+      (act_t && !root_deep) ? fminf(us0, ibeta * ptr) * pj * va : 0.f;
+
+  // infiltration (Element.cpp:271-303)
+  const float fu_surf = a.fc(F_FU_SURF, i), fu_sub = a.fc(F_FU_SUB, i);
+  const float av = sf + a.fc(F_NET_PRCP, i);
+  const bool gw_at_surface = (gw + us > aqd) || (deficit < us);
+  const float ex = gw + us - aqd;
+  const float inf_d = a.cf(INF_D, i);
+  const float grad = 1.f + av / inf_d;
+  const bool heavy = av > kmax, medium = av > ikv;
+  const float effk =
+      heavy ? ikv * (1.f - haf) + haf * mkv * satn
+            : (medium ? sat_kr * ikv * (1.f - haf) + haf * mkv * satn
+                      : sat_kr * ikv * (1.f - haf));
+  const float ge = fmaxf(grad * effk, 0.f);
+  const bool act_i = (av > 0.f) && (deficit > inf_d);
+  const float qi = gw_at_surface ? 0.f : (act_i ? fminf(av, ge) : 0.f);
+  const float qex = gw_at_surface ? fabsf(ex) / aqd * kmax : 0.f;
+  float q_infil = qi * fu_surf, q_exfil = qex * fu_surf;
+
+  // recharge (Element.cpp:304-334)
+  const float tfc = a.cf(THETA_FC, i), ksv = a.cf(KSAT_V, i);
+  const bool skip = (gw > aqd - inf_d) && (us < deficit);
+  const bool g_act = (theta > tr) && (us > kEpsilon);
+  const float gr_raw = (theta - tr) / (tfc - tr);
+  const float rgrad = g_act ? fmaxf(gr_raw, 0.f) : 0.f;
+  const float ku = ikv * sat_kr;
+  const float denom = deficit * ksv + gw * ku;
+  const float den_s = denom == 0.f ? 1.f : denom;
+  const float num = ku * ksv * (deficit + gw);
+  const float ke = denom == 0.f ? 0.f : num / den_s;
+  const bool zerok = (ikv <= 0.f) || (ksv <= 0.f);
+  float q_rech = (skip ? 0.f : (zerok ? 0.f : rgrad * ke)) * fu_sub;
+  if (is_lake) q_infil = q_exfil = q_rech = 0.f;
+
+  a.sc(C_GW, i) = gw;
+  a.sc(C_KH, i) = effkh;
+  a.sc(C_ACELL, i) = sf - q_infil + q_exfil;
+  a.sc(C_QINF, i) = q_infil;
+  a.sc(C_QEXF, i) = q_exfil;
+  a.sc(C_QRECH, i) = q_rech;
+  a.sc(C_ES, i) = es;
+  a.sc(C_EU, i) = eu;
+  a.sc(C_EG, i) = eg;
+  a.sc(C_TU, i) = tu;
+  a.sc(C_TG, i) = tg;
+  if constexpr (!T) return;
+
+  // tangents of ET, infiltration and recharge
+  const float t_beta_raw = t_satn * (ts - tr) / (fcap - tr);
+  const float t_beta =
+      (beta_raw >= 0.f && beta_raw <= 1.f) ? t_beta_raw : 0.f;
+  const float t_ibeta = 0.5f * sinf(kPi * beta_s) * kPi * t_beta;
+  const float t_sf0 = dmax0(sf, t_sf), t_gw0 = dmax0(gw, t_gw);
+  const float t_us0 = dmax0(us, t_us);
+  const float t_es = dmin(sf0, pe, t_sf0, 0.f) * vb;
+  const float t_rem = -t_es;
+  const float t_eg =
+      (some_left && gw_high) ? dmin(gw0, rem, t_gw0, t_rem) * pj * vb : 0.f;
+  const float t_ib_rem = t_ibeta * rem + ibeta * t_rem;
+  const float t_eu = (some_left && !gw_high)
+                         ? dmin(us0, ibeta * rem, t_us0, t_ib_rem) * pj * vb
+                         : 0.f;
+  const float t_tg =
+      (act_t && root_deep) ? dmin(gw0, ptr, t_gw0, 0.f) * pj * va : 0.f;
+  const float t_tu = (act_t && !root_deep)
+                         ? dmin(us0, ibeta * ptr, t_us0, t_ibeta * ptr) * pj * va
+                         : 0.f;
+
+  const float t_grad = t_sf / inf_d;
+  const float t_effk =
+      heavy ? haf * mkv * t_satn
+            : (medium ? t_sat_kr * ikv * (1.f - haf) + haf * mkv * t_satn
+                      : t_sat_kr * ikv * (1.f - haf));
+  const float t_ge = dmax0(grad * effk, t_grad * effk + grad * t_effk);
+  const float t_qi =
+      gw_at_surface ? 0.f : (act_i ? dmin(av, ge, t_sf, t_ge) : 0.f);
+  const float t_qex =
+      gw_at_surface ? dabs(ex, t_gw + t_us) / aqd * kmax : 0.f;
+  float t_qinf = t_qi * fu_surf, t_qexf = t_qex * fu_surf;
+
+  const float t_grad_r = g_act ? dmax0(gr_raw, t_theta / (tfc - tr)) : 0.f;
+  const float t_ku = ikv * t_sat_kr;
+  const float t_denom = t_deficit * ksv + t_gw * ku + gw * t_ku;
+  const float t_num = (t_ku * (deficit + gw) + ku * (t_deficit + t_gw)) * ksv;
+  const float t_ke = denom == 0.f
+                         ? 0.f
+                         : (t_num * den_s - num * t_denom) / (den_s * den_s);
+  float t_qrech =
+      (skip ? 0.f : (zerok ? 0.f : t_grad_r * ke + rgrad * t_ke)) * fu_sub;
+  if (is_lake) t_qinf = t_qexf = t_qrech = 0.f;
+
+  constexpr int o = kCellFields;
+  a.sc(o + C_GW, i) = t_gw;
+  a.sc(o + C_KH, i) = t_effkh;
+  a.sc(o + C_ACELL, i) = t_sf - t_qinf + t_qexf;
+  a.sc(o + C_QINF, i) = t_qinf;
+  a.sc(o + C_QEXF, i) = t_qexf;
+  a.sc(o + C_QRECH, i) = t_qrech;
+  a.sc(o + C_ES, i) = t_es;
+  a.sc(o + C_EU, i) = t_eu;
+  a.sc(o + C_EG, i) = t_eg;
+  a.sc(o + C_TU, i) = t_tu;
+  a.sc(o + C_TG, i) = t_tg;
+}
+
+// Flux_RiverDown (MD_RiverFlux.cpp:5-63): the reach's downstream discharge
+template <bool T>
+__device__ void reach_pointwise(const Args& a, int r) {
+  const float rstage = a.rstage(r);
+  const float bs = a.rf(R_BANK_SLOPE, r), bw = a.rf(R_BOTTOM_WIDTH, r);
+  const float csa_raw = rstage * (bw + rstage * bs);
+  const float r_csa = fmaxf(csa_raw, 0.f);
+  const float sq_bs = sqrtf(1.f + bs * bs);
+  const float per_raw = 2.f * fabsf(rstage) * sq_bs + bw;
+  const float r_per = fmaxf(per_raw, 0.f);
+  const int dn = a.ri(R_DN, r);
+  const float rstage_dn = a.rstage(dn);
+  const float d2d = a.rf(R_DIST2DOWN, r), len = a.rf(R_LENGTH, r);
+  const float rough = a.rf(R_AVG_ROUGH, r);
+  const float s_down = ((rstage - a.rf(R_DEPTH, r)) -
+                        (rstage_dn - a.rf(R_DEPTH_DN, r))) / d2d +
+                       a.rf(R_S_MEAN, r);
+  const bool per_z = r_per <= kZero;
+  const float r_hyd = per_z ? 0.f : r_csa / (per_z ? 1.f : r_per);
+  const float s_out = a.rf(R_BED_SLOPE, r) + rstage * 2.f / len;
+  const float sq_g = sqrtf(kGrav * fmaxf(rstage, 1e-30f));
+  const bool to_lake = a.ri(R_TO_LAKE, r) > 0;
+  const bool has_down = a.ri(R_HAS_DOWN, r) > 0;
+  const bool crit = a.ri(R_CRIT_OUT, r) > 0;
+  float q;
+  if (to_lake || (!has_down && !crit))
+    q = manning(r_csa, rough, r_hyd, s_out);
+  else if (has_down)
+    q = manning(r_csa, rough, r_hyd, s_down);
+  else
+    q = r_csa * sq_g * 60.f;
+  a.sr(0, r) = q;
+  if constexpr (!T) return;
+
+  const float t_rst = a.t_rstage(r), t_rdn = a.t_rstage(dn);
+  const float t_csa = dmax0(csa_raw, t_rst * (bw + 2.f * rstage * bs));
+  const float t_per = dmax0(per_raw, 2.f * dabs(rstage, t_rst) * sq_bs);
+  const float t_rhyd =
+      per_z ? 0.f : (t_csa * r_per - r_csa * t_per) / (per_z ? 1.f
+                                                              : r_per * r_per);
+  float tq;
+  if (to_lake || (!has_down && !crit)) {
+    tq = manning_t(r_csa, rough, r_hyd, s_out, t_csa, t_rhyd,
+                   t_rst * 2.f / len);
+  } else if (has_down) {
+    tq = manning_t(r_csa, rough, r_hyd, s_down, t_csa, t_rhyd,
+                   (t_rst - t_rdn) / d2d);
+  } else {
+    const float t_sqg = rstage > 1e-30f ? kGrav * t_rst / (2.f * sq_g) : 0.f;
+    tq = (t_csa * sq_g + r_csa * t_sqg) * 60.f;
+  }
+  a.sr(1, r) = tq;
+}
+
+template <bool T>
+__global__ void phase_a(Args a) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < a.ne)
+    cell_pointwise<T>(a, t);
+  else if (t < a.ne + a.nr)
+    reach_pointwise<T>(a, t - a.ne);
+}
+
+// ---------------------------------------------------------------------------
+// phase B: the 3-edge stencil per cell (MD_ElementFlux.cpp:35-156, lake
+// banks :46-53,122) and the segment stencil (MD_RiverFlux.cpp:65-126)
+// ---------------------------------------------------------------------------
+
+struct Edge {
+  float q_surf, q_sub, t_surf, t_sub;  // selected law; sub before fu_sub
+  float lk_surf, lk_sub, t_lk_surf, t_lk_sub;  // lake-bank totals' terms
+};
+
+template <bool T>
+__device__ Edge one_edge(const Args& a, int i, int e, float sf, float t_sf,
+                         float gw, float t_gw, float kh, float t_kh,
+                         float dep, float rcell) {
+  const int ne = a.ne, n3 = 3 * ne;
+  Edge o = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  const float B = a.edge_f[E_B * n3 + e];
+  const float dist = a.edge_f[E_DIST * n3 + e];
+  const bool m_int = a.edge_i[E_M_INT * n3 + e] > 0;
+  // closed boundary: the boundary flag and d2e are never read
+  const bool m_bnd = !a.close_boundary && a.edge_i[E_M_BND * n3 + e] > 0;
+  const bool m_lake = a.nl > 0 && a.edge_i[E_M_LAKE * n3 + e] > 0;
+  const int nb = a.edge_i[E_NBQ * n3 + e];
+  const float isf = fmaxf(sf, 0.f);
+  const float t_isf = T ? dmax0(sf, t_sf) : 0.f;
+  const float nkh = a.sc(C_KH, nb);
+  const float t_nkh = T ? a.sc(kCellFields + C_KH, nb) : 0.f;
+
+  if (m_lake) {
+    // weir and Darcy laws against the lake stage (pallas_mega.py:1078-1099)
+    const int lk = a.edge_i[E_LK_ID * n3 + e];
+    const float lake_e = a.y[3 * ne + a.nr + lk];
+    const float lake_nsf = fmaxf(lake_e, 0.f);
+    const float hi0 = lake_nsf + a.edge_f[E_LK_DZL * n3 + e];
+    const float dh_w = isf - hi0;
+    const float y_pos = hi0 > 0.f ? dh_w : hi0;
+    const float sq_pos = sqrtf(2.f * kGrav * fmaxf(y_pos, kTiny));
+    const bool c_pos = (hi0 > 0.f) && (isf > 0.01f);
+    const float q_pos = c_pos ? 0.6f * sq_pos * B * y_pos * 60.f : 0.f;
+    const float y_neg = isf > 0.f ? -dh_w : hi0;
+    const float sq_neg = sqrtf(2.f * kGrav * fmaxf(y_neg, kTiny));
+    const bool c_neg = (hi0 > 0.f) && (lake_nsf > 0.01f);
+    const float q_neg = c_neg ? -0.6f * sq_neg * B * y_neg * 60.f : 0.f;
+    o.q_surf = dh_w > 0.f ? q_pos : q_neg;
+    const float dh_lk = (gw - lake_e) + a.edge_f[E_LK_DZB * n3 + e];
+    const float ymean = 0.5f * (fmaxf(gw, 0.f) + fmaxf(lake_e, 0.f));
+    const float kmean = 0.5f * (kh + nkh);
+    const bool cut = (dh_lk > 0.f && gw <= 0.02f) ||
+                     (dh_lk < 0.f && lake_e <= 0.02f);
+    o.q_sub = cut ? 0.f : kmean * (dh_lk / dist) * ymean * B;
+    o.lk_surf = o.q_surf;
+    o.lk_sub = o.q_sub;
+    if constexpr (T) {
+      const float t_lake_e = a.ty[3 * ne + a.nr + lk];
+      const float t_hi0 = dmax0(lake_e, t_lake_e);
+      const float t_dh_w = t_isf - t_hi0;
+      const float t_y_pos = hi0 > 0.f ? t_dh_w : t_hi0;
+      const float t_sq_pos =
+          y_pos > kTiny ? 2.f * kGrav * t_y_pos / (2.f * sq_pos) : 0.f;
+      const float t_q_pos =
+          c_pos ? 0.6f * (t_sq_pos * y_pos + sq_pos * t_y_pos) * B * 60.f
+                : 0.f;
+      const float t_y_neg = isf > 0.f ? -t_dh_w : t_hi0;
+      const float t_sq_neg =
+          y_neg > kTiny ? 2.f * kGrav * t_y_neg / (2.f * sq_neg) : 0.f;
+      const float t_q_neg =
+          c_neg ? -0.6f * (t_sq_neg * y_neg + sq_neg * t_y_neg) * B * 60.f
+                : 0.f;
+      o.t_surf = dh_w > 0.f ? t_q_pos : t_q_neg;
+      const float t_dh_lk = t_gw - t_lake_e;
+      const float t_ymean =
+          0.5f * (dmax0(gw, t_gw) + dmax0(lake_e, t_lake_e));
+      const float t_kmean = 0.5f * (t_kh + t_nkh);
+      o.t_sub = cut ? 0.f
+                    : (t_kmean * (dh_lk / dist) * ymean +
+                       kmean * (t_dh_lk / dist) * ymean +
+                       kmean * (dh_lk / dist) * t_ymean) * B;
+      o.t_lk_surf = o.t_surf;
+      o.t_lk_sub = o.t_sub;
+    }
+  } else if (m_int) {
+    const float nsf_raw = a.y[nb];
+    const float nsf = fmaxf(nsf_raw, 0.f);
+    const float ngw = a.sc(C_GW, nb);
+    const float ravg = a.edge_f[E_RAVG * n3 + e];
+    // diffusive-wave surface flux (pallas_edge._flux_surface_int)
+    const float dh = (isf - nsf) + a.edge_f[E_DZS * n3 + e];
+    const float up1 = isf > dep ? isf : 0.f;
+    const float up2 = nsf > dep ? nsf : 0.f;
+    const float w = dh > 0.f ? up1 : up2;
+    const float ymean = fminf(w, kMaxYSurf);
+    const float s = dh / dist;
+    const float sqrt_s = sqrtf(fmaxf(fabsf(s), kTiny));
+    const float p23 = pow23(ymean);
+    const float q_pos = sqrt_s * (ymean * B) * p23 / ravg;
+    const bool dead = (s > 0.f && isf <= 0.f) || (s < 0.f && nsf <= 0.f) ||
+                      ymean <= 0.f;
+    o.q_surf = dead ? 0.f : (s > 0.f ? q_pos : -q_pos);
+    // Darcy subsurface flux (pallas_edge._flux_sub_int)
+    const float dh_s = (gw - ngw) + a.edge_f[E_DZB * n3 + e];
+    const float ym_s = 0.5f * (fmaxf(gw, 0.f) + fmaxf(ngw, 0.f));
+    const float grad_s = dh_s / dist;
+    const float kmean = 0.5f * (kh + nkh);
+    const bool cut = (dh_s > 0.f && gw <= 0.02f) || (dh_s < 0.f && ngw <= 0.02f);
+    o.q_sub = cut ? 0.f : kmean * grad_s * ym_s * B;
+    if constexpr (T) {
+      const float t_nsf = dmax0(nsf_raw, a.ty[nb]);
+      const float t_ngw = a.sc(kCellFields + C_GW, nb);
+      const float t_dh = t_isf - t_nsf;
+      const float t_w = dh > 0.f ? (isf > dep ? t_isf : 0.f)
+                                 : (nsf > dep ? t_nsf : 0.f);
+      const float t_ym =
+          w < kMaxYSurf ? t_w : (w == kMaxYSurf ? 0.5f * t_w : 0.f);
+      const float t_s = t_dh / dist;
+      const float t_abs_s = s >= 0.f ? t_s : -t_s;
+      const float t_sqrt_s =
+          fabsf(s) > kTiny ? t_abs_s / (2.f * sqrt_s) : 0.f;
+      const float t_p23 =
+          ymean > kTiny ? (2.f / 3.f) * t_ym / cbrt_pos(ymean) : 0.f;
+      const float cross = ymean * B;
+      const float t_qpos = (t_sqrt_s * cross * p23 +
+                            sqrt_s * (t_ym * B * p23 + cross * t_p23)) / ravg;
+      o.t_surf = dead ? 0.f : (s > 0.f ? t_qpos : -t_qpos);
+      const float t_ym_s = 0.5f * (dmax0(gw, t_gw) + dmax0(ngw, t_ngw));
+      const float t_grad = (t_gw - t_ngw) / dist;
+      const float t_km = 0.5f * (t_kh + t_nkh);
+      o.t_sub = cut ? 0.f
+                    : (t_km * grad_s * ym_s + kmean * t_grad * ym_s +
+                       kmean * grad_s * t_ym_s) * B;
+    }
+  } else if (m_bnd) {
+    // kinematic free drainage (pallas_edge._flux_surface_bnd/_sub_bnd)
+    const float d2e = a.edge_f[E_D2E * n3 + e];
+    const float sb = isf / d2e * 0.5f;
+    const float isf5 = cbrt_pos(isf * isf * isf * isf * isf);
+    const float sqrt_sb = sqrtf(fmaxf(sb, 0.f));
+    const bool act_s = (isf > dep) && (sb > 0.f);
+    o.q_surf = act_s ? sqrt_sb * isf5 * B / rcell : 0.f;
+    const float grad_b = gw / d2e * 0.5f;
+    const bool act_b = (gw > dep * 10.f) && (grad_b > 0.f);
+    o.q_sub = act_b ? kh * grad_b : 0.f;
+    if constexpr (T) {
+      const float t_sb = t_isf / d2e * 0.5f;
+      const float t_sqrt_sb = sb > 0.f ? t_sb / (2.f * sqrt_sb) : 0.f;
+      const float u4 = isf * isf * isf * isf;
+      const float t_isf5 =
+          isf > 0.f ? 5.f * u4 * t_isf / (3.f * isf5 * isf5) : 0.f;
+      o.t_surf = act_s ? (t_sqrt_sb * isf5 + sqrt_sb * t_isf5) * B / rcell
+                       : 0.f;
+      o.t_sub = act_b ? t_kh * grad_b + kh * (t_gw / d2e * 0.5f) : 0.f;
+    }
+  }
+  return o;
+}
+
+template <bool T>
+__device__ void cell_edges(const Args& a, int i) {
+  const float sf = a.y[i], gw = a.sc(C_GW, i), kh = a.sc(C_KH, i);
+  float t_sf = 0.f, t_gw = 0.f, t_kh = 0.f;
+  if constexpr (T) {
+    t_sf = a.ty[i];
+    t_gw = a.sc(kCellFields + C_GW, i);
+    t_kh = a.sc(kCellFields + C_KH, i);
+  }
+  const float dep = a.cf(DEPRESSION, i);
+  const float rcell = a.close_boundary ? 1.f : a.cf(ROUGH, i);
+  const float fu_sub = a.fc(F_FU_SUB, i);
+  Edge q[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int e = 3 * i + j;
+    q[j] = one_edge<T>(a, i, e, sf, t_sf, gw, t_gw, kh, t_kh, dep, rcell);
+    if (a.nl > 0) {
+      a.se(L_SURF, e) = q[j].lk_surf;
+      a.se(L_SUB, e) = q[j].lk_sub;
+      if constexpr (T) {
+        a.se(L_T_SURF, e) = q[j].t_lk_surf;
+        a.se(L_T_SUB, e) = q[j].t_lk_sub;
+      }
+    }
+  }
+  a.sc(C_OWN_SURF, i) = q[0].q_surf + q[1].q_surf + q[2].q_surf;
+  a.sc(C_OWN_SUB, i) = q[0].q_sub * fu_sub + q[1].q_sub * fu_sub +
+                       q[2].q_sub * fu_sub;
+  if constexpr (T) {
+    a.sc(kCellFields + C_OWN_SURF, i) = q[0].t_surf + q[1].t_surf + q[2].t_surf;
+    a.sc(kCellFields + C_OWN_SUB, i) = q[0].t_sub * fu_sub +
+                                       q[1].t_sub * fu_sub +
+                                       q[2].t_sub * fu_sub;
+  }
+}
+
+// weir (local datum) and river-aquifer Darcy exchange of one segment
+template <bool T>
+__device__ void segment(const Args& a, int k) {
+  const int se = a.seg_i[S_SE * a.ns + k], sr = a.seg_i[S_SR * a.ns + k];
+  const float sfe_raw = a.sc(C_ACELL, se);
+  const float gwe = a.sc(C_GW, se), khe = a.sc(C_KH, se);
+  const float rstage = a.rstage(sr);
+  const float len = a.sfl(S_LENGTH, k), cwr = a.sfl(S_CWR, k);
+  const float dep_e = a.sfl(S_DEP_E, k), zr = a.sfl(S_ZR_LOC, k);
+  const float k_riv = a.sfl(S_KSAT_RIV, k), d_riv = a.sfl(S_BED_THICK, k);
+  const float fu = a.segfu[k];
+  const float seg_isf = fmaxf(sfe_raw, 0.f);
+
+  // weir_flow_jtoi, zi = zbank = 0, zj = -riv_depth
+  const float hi = seg_isf, hj = rstage + a.sfl(S_NEG_DEPTH, k);
+  const float dh = hj - hi;
+  const float y_pos = hi > 0.f ? dh : hi;
+  const bool c_pos = (hi > 0.f) && (rstage > dep_e);
+  const float sq_pos = sqrtf(2.f * kGrav * fmaxf(y_pos, kTiny));
+  const float q_pos = c_pos ? cwr * sq_pos * len * y_pos * 60.f : 0.f;
+  const float y_neg = hj > 0.f ? -dh : hi;
+  const bool c_neg = (hi > 0.f) && (seg_isf > dep_e);
+  const float sq_neg = sqrtf(2.f * kGrav * fmaxf(y_neg, kTiny));
+  const float q_neg = c_neg ? -cwr * sq_neg * len * y_neg * 60.f : 0.f;
+  a.sg(G_SURF, k) = dh > 0.f ? q_pos : q_neg;
+
+  // flux_r2e_gw, ze = 0, zr = aq_depth - riv_depth
+  const float kk = 0.5f * (khe + k_riv);
+  const float he = gwe, hr = rstage + zr;
+  const float dhr = hr - he;
+  const float g = dhr / d_riv;
+  const float a_r2e = he > zr ? (rstage + (he - zr)) * 0.5f * len : rstage * len;
+  const float a_e2r = (rstage + (he - zr)) * 0.5f * len;
+  const bool zerok = (khe < kZero) || (k_riv < kZero);
+  float q = 0.f;
+  if (dhr > kZero)
+    q = rstage < kEpsilon ? 0.f : a_r2e * kk * g;
+  else if (dhr < -kZero)
+    q = gwe > kZero ? a_e2r * kk * g : 0.f;
+  a.sg(G_SUB, k) = (zerok ? 0.f : q) * fu;
+  if constexpr (!T) return;
+
+  constexpr int o = kCellFields;
+  const float t_acell = a.sc(o + C_ACELL, se);
+  const float t_gwe = a.sc(o + C_GW, se), t_khe = a.sc(o + C_KH, se);
+  const float t_rst = a.t_rstage(sr);
+  const float t_isf = dmax0(sfe_raw, t_acell);
+  const float t_dh = t_rst - t_isf;
+  const float t_ypos = hi > 0.f ? t_dh : t_isf;
+  const float t_sqpos =
+      y_pos > kTiny ? 2.f * kGrav * t_ypos / (2.f * sq_pos) : 0.f;
+  const float t_qpos =
+      c_pos ? cwr * (t_sqpos * y_pos + sq_pos * t_ypos) * len * 60.f : 0.f;
+  const float t_yneg = hj > 0.f ? -t_dh : t_isf;
+  const float t_sqneg =
+      y_neg > kTiny ? 2.f * kGrav * t_yneg / (2.f * sq_neg) : 0.f;
+  const float t_qneg =
+      c_neg ? -cwr * (t_sqneg * y_neg + sq_neg * t_yneg) * len * 60.f : 0.f;
+  a.sg(G_T_SURF, k) = dh > 0.f ? t_qpos : t_qneg;
+
+  const float t_k = 0.5f * t_khe;
+  const float t_g = (t_rst - t_gwe) / d_riv;
+  float t_q = 0.f;
+  if (dhr > kZero) {
+    const float t_ar2e =
+        he > zr ? (t_rst + t_gwe) * 0.5f * len : t_rst * len;
+    t_q = rstage < kEpsilon ? 0.f
+                            : t_ar2e * kk * g + a_r2e * (t_k * g + kk * t_g);
+  } else if (dhr < -kZero) {
+    const float t_ae2r = (t_rst + t_gwe) * 0.5f * len;
+    t_q = gwe > kZero ? t_ae2r * kk * g + a_e2r * (t_k * g + kk * t_g) : 0.f;
+  }
+  a.sg(G_T_SUB, k) = (zerok ? 0.f : t_q) * fu;
+}
+
+template <bool T>
+__global__ void phase_b(Args a) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < a.ne)
+    cell_edges<T>(a, t);
+  else if (t < a.ne + a.ns)
+    segment<T>(a, t - a.ne);
+}
+
+// ---------------------------------------------------------------------------
+// phase C: fixed-width reductions, lake bucket, assembly (f_applyDY,
+// MD_f.cpp:52-215) or the window diagnostics
+// ---------------------------------------------------------------------------
+
+// 0 - v[l0] - v[l1] - ... over one padded list row (pad index >= n)
+__device__ __forceinline__ float neg_list_sum(const float* v, const int* row,
+                                              int width, int n) {
+  float acc = 0.f;
+  for (int k = 0; k < width; ++k) {
+    int idx = row[k];
+    if (idx < n) acc = acc - v[idx];
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float list_sum(const float* v, const int* row,
+                                          int width, int n) {
+  float acc = 0.f;
+  for (int k = 0; k < width; ++k) {
+    int idx = row[k];
+    if (idx < n) acc = acc + v[idx];
+  }
+  return acc;
+}
+
+template <bool T, bool D>
+__device__ void cell_assembly(const Args& a, int i) {
+  const int ne = a.ne, ns = a.ns;
+  const int* row = a.seg_to_ele + i * a.kc;
+  const float* seg0 = &a.sg(0, 0);
+  const float e2r_surf = neg_list_sum(seg0 + G_SURF * ns, row, a.kc, ns);
+  const float e2r_sub = neg_list_sum(seg0 + G_SUB * ns, row, a.kc, ns);
+  const bool is_lake = a.nl > 0 && a.ci(IS_LAKE, i);
+  const float area = a.cf(AREA, i), sy = a.cf(SY, i);
+  float* out = a.out;
+  if constexpr (D) {
+    const float pj = 1.f - a.cf(IMP_AF, i), va = a.cf(VEG_FRAC, i);
+    const float pot_tran = a.fc(F_POT_TRAN, i), e_ic = a.fc(F_E_IC, i);
+    const bool has_veg = a.fc(F_LAI, i) > kZero;
+    const float e_ic_out =
+        has_veg ? (e_ic >= pot_tran ? pot_tran * pj * va : e_ic) : 0.f;
+    const float own_surf = is_lake ? 0.f : a.sc(C_OWN_SURF, i);
+    const float own_sub = is_lake ? 0.f : a.sc(C_OWN_SUB, i);
+    const float vals[kDiagCell] = {
+        a.sc(C_QRECH, i), e2r_sub + own_sub, e2r_surf + own_surf, e2r_sub,
+        e2r_surf, a.sc(C_QINF, i), a.sc(C_QEXF, i),
+        is_lake ? 0.f : a.sc(C_ES, i), is_lake ? 0.f : a.sc(C_EU, i),
+        is_lake ? 0.f : a.sc(C_EG, i), is_lake ? 0.f : a.sc(C_TU, i),
+        is_lake ? 0.f : a.sc(C_TG, i), is_lake ? 0.f : e_ic_out};
+#pragma unroll
+    for (int f = 0; f < kDiagCell; ++f) out[f * ne + i] = vals[f];
+  } else if constexpr (!T) {
+    const float q_infil = a.sc(C_QINF, i), q_exfil = a.sc(C_QEXF, i);
+    const float q_rech = a.sc(C_QRECH, i);
+    float dsf = a.fc(F_NET_PRCP, i) - q_infil + q_exfil -
+                (e2r_surf + a.sc(C_OWN_SURF, i)) / area - a.sc(C_ES, i);
+    float dus = q_infil - q_rech - a.sc(C_EU, i) - a.sc(C_TU, i);
+    float dgw = q_rech - q_exfil - (e2r_sub + a.sc(C_OWN_SUB, i)) / area -
+                a.sc(C_EG, i) - a.sc(C_TG, i);
+    if (a.ci(IBC_POS, i)) dgw = 0.f;
+    if (a.ci(IBC_NEG, i)) dgw = dgw + a.fc(F_ELE_QBC, i) / area;
+    if (a.ci(ISS_POS, i)) dsf = dsf + a.fc(F_ELE_QSS, i) / area;
+    if (a.ci(ISS_NEG, i)) dgw = dgw + a.fc(F_ELE_QSS, i) / area;
+    dus = dus / sy;
+    dgw = dgw / sy;
+    out[i] = is_lake ? 0.f : dsf;
+    out[ne + i] = is_lake ? 0.f : dus;
+    out[2 * ne + i] = is_lake ? 0.f : dgw;
+  } else {
+    constexpr int o = kCellFields;
+    const float t_e2r_surf =
+        neg_list_sum(seg0 + G_T_SURF * ns, row, a.kc, ns);
+    const float t_e2r_sub = neg_list_sum(seg0 + G_T_SUB * ns, row, a.kc, ns);
+    const float t_qinf = a.sc(o + C_QINF, i), t_qexf = a.sc(o + C_QEXF, i);
+    const float t_qrech = a.sc(o + C_QRECH, i);
+    const float t_dsf = -t_qinf + t_qexf -
+                        (t_e2r_surf + a.sc(o + C_OWN_SURF, i)) / area -
+                        a.sc(o + C_ES, i);
+    float t_dus = t_qinf - t_qrech - a.sc(o + C_EU, i) - a.sc(o + C_TU, i);
+    float t_dgw = t_qrech - t_qexf -
+                  (t_e2r_sub + a.sc(o + C_OWN_SUB, i)) / area -
+                  a.sc(o + C_EG, i) - a.sc(o + C_TG, i);
+    if (a.ci(IBC_POS, i)) t_dgw = 0.f;
+    t_dus = t_dus / sy;
+    t_dgw = t_dgw / sy;
+    out[i] = is_lake ? 0.f : t_dsf;
+    out[ne + i] = is_lake ? 0.f : t_dus;
+    out[2 * ne + i] = is_lake ? 0.f : t_dgw;
+  }
+}
+
+template <bool T, bool D>
+__device__ void reach_assembly(const Args& a, int r) {
+  const int ne = a.ne, nr = a.nr, ns = a.ns;
+  const float* seg0 = &a.sg(0, 0);
+  const float* qdown = &a.sr(0, 0);
+  const int* srow = a.seg_to_riv + r * a.kr;
+  const int* urow = a.riv_up + r * a.kup;
+  const float q_riv_surf = list_sum(seg0 + G_SURF * ns, srow, a.kr, ns);
+  const float q_riv_sub = list_sum(seg0 + G_SUB * ns, srow, a.kr, ns);
+  const float q_riv_up = neg_list_sum(qdown, urow, a.kup, nr);
+  const float q_riv_down = qdown[r];
+  if constexpr (D) {
+    float* out = a.out + kDiagCell * ne;
+    out[r] = q_riv_up;
+    out[nr + r] = q_riv_down;
+    out[2 * nr + r] = q_riv_sub;
+    out[3 * nr + r] = q_riv_surf;
+    return;
+  }
+  const float rstage = a.rstage(r);
+  const float bs = a.rf(R_BANK_SLOPE, r), bw = a.rf(R_BOTTOM_WIDTH, r);
+  const float len = a.rf(R_LENGTH, r);
+  const float topw_raw = rstage * bs * 2.f + bw;
+  const float r_topw = fmaxf(topw_raw, 0.f);
+  const float csa_raw = rstage * (bw + rstage * bs);
+  const float r_csa = fmaxf(csa_raw, 0.f);
+  const float da_raw =
+      (-q_riv_up - q_riv_surf - q_riv_sub - q_riv_down +
+       a.friv[F_RIV_QBC * nr + r]) / len;
+  const float da = fmaxf(da_raw, -r_csa);
+  // fun_dAtodY in the Citardauq form 2 da / (w + sqrt(w^2 + 4 s da))
+  const float s_abs = fabsf(bs);
+  const float cc = r_topw * r_topw + 4.f * s_abs * da;
+  const float sq = sqrtf(fmaxf(cc, kTiny));
+  const float denom = r_topw + sq;
+  const float den_s = denom <= 0.f ? 1.f : denom;
+  const bool bcpos = a.ri(R_BC_POS, r) > 0;
+  float* out = a.out + 3 * ne;
+  if constexpr (!T) {
+    const float quad =
+        cc < kZero ? -r_topw / (2.f * s_abs) : 2.f * da / den_s;
+    const float dy = s_abs < kEpsSlope ? da / r_topw : quad;
+    out[r] = (bcpos || da == 0.f) ? 0.f : dy;
+  } else {
+    const float* t_qdown = &a.sr(1, 0);
+    const float t_rst = a.t_rstage(r);
+    const float t_surf = list_sum(seg0 + G_T_SURF * ns, srow, a.kr, ns);
+    const float t_sub = list_sum(seg0 + G_T_SUB * ns, srow, a.kr, ns);
+    const float t_up = neg_list_sum(t_qdown, urow, a.kup, nr);
+    const float t_topw = dmax0(topw_raw, t_rst * bs * 2.f);
+    const float t_csa = dmax0(csa_raw, t_rst * (bw + 2.f * rstage * bs));
+    const float t_da_raw = (-t_up - t_surf - t_sub - t_qdown[r]) / len;
+    const float t_da = dmax(da_raw, -r_csa, t_da_raw, -t_csa);
+    const float t_cc = 2.f * r_topw * t_topw + 4.f * s_abs * t_da;
+    const float t_sq = cc > kTiny ? t_cc / (2.f * sq) : 0.f;
+    const float t_den = t_topw + t_sq;
+    const float t_quad =
+        cc < kZero ? -t_topw / (2.f * s_abs)
+                   : (2.f * t_da * den_s - 2.f * da * t_den) / (den_s * den_s);
+    const float t_dy =
+        s_abs < kEpsSlope ? (t_da * r_topw - da * t_topw) / (r_topw * r_topw)
+                          : t_quad;
+    out[r] = (bcpos || da == 0.f) ? 0.f : t_dy;
+  }
+}
+
+// lake bucket dStage (MD_f.cpp:44-47,180-191; Lake.cpp:toparea), one
+// thread per lake walking its bank-edge and inflow-reach lists
+template <bool T, bool D>
+__device__ void lake_assembly(const Args& a, int l) {
+  const int ne = a.ne, nr = a.nr, nl = a.nl, n3 = 3 * ne;
+  const float p_l = a.flake[l], e_l = a.flake[nl + l];
+  const float stg = a.y[3 * ne + nr + l];
+  const float avail = p_l + stg;
+  const float inner = fminf(e_l, avail);
+  const float evap = fmaxf(inner, 0.f);
+  const int* erow = a.edge_to_lake + l * a.kel;
+  const int* rrow = a.riv_to_lake + l * a.krl;
+  const float surf_l = list_sum(&a.se(L_SURF, 0), erow, a.kel, n3);
+  const float sub_l = list_sum(&a.se(L_SUB, 0), erow, a.kel, n3);
+  const float* qdown = &a.sr(0, 0);
+  float rivin_l = 0.f;
+  for (int k = 0; k < a.krl; ++k) {
+    const int idx = rrow[k];
+    if (idx < nr) rivin_l = rivin_l + (a.ri(R_TO_LAKE, idx) > 0 ? qdown[idx]
+                                                                : 0.f);
+  }
+  // piecewise-linear stage -> area, a sequential scan with a done flag
+  const float* by = a.bathy_y + l * a.kb;
+  const float* ba = a.bathy_a + l * a.kb;
+  const float yq = stg + a.lake_zmin[l];
+  const float t_stg = T ? a.ty[3 * ne + nr + l] : 0.f;
+  float ta = ba[0], t_ta = 0.f;
+  bool done = yq <= by[0];
+  for (int k = 1; k < a.kb; ++k) {
+    const float yi = by[k], yim = by[k - 1], ai = ba[k];
+    const bool below = yq < yi, eq = yi == yq;
+    const float denom = eq ? 1.f : yi - yq;
+    const float u = ai - ta;
+    const float v = (yq - yim) / denom;
+    const float new_ta = below ? u * v + ta : ai;
+    if constexpr (T) {
+      const float t_denom = eq ? 0.f : -t_stg;
+      const float t_v = (t_stg * denom - (yq - yim) * t_denom) /
+                        (denom * denom);
+      const float t_new = below ? -t_ta * v + u * t_v + t_ta : 0.f;
+      t_ta = done ? t_ta : t_new;
+    }
+    ta = done ? ta : new_ta;
+    done = done || below;
+  }
+  const float inflow = rivin_l + sub_l + surf_l;
+  if constexpr (D) {
+    float* out = a.out + kDiagCell * ne + kDiagRiv * nr;
+    const float vals[6] = {ta, evap, p_l, rivin_l, surf_l, sub_l};
+#pragma unroll
+    for (int f = 0; f < 6; ++f) out[f * nl + l] = vals[f];
+  } else if constexpr (!T) {
+    a.out[3 * ne + nr + l] = p_l - evap + inflow / ta;
+  } else {
+    const float t_evap = dmax0(inner, dmin(e_l, avail, 0.f, t_stg));
+    float t_riv = 0.f;
+    for (int k = 0; k < a.krl; ++k) {
+      const int idx = rrow[k];
+      if (idx < nr) t_riv = t_riv + (a.ri(R_TO_LAKE, idx) > 0 ? a.sr(1, idx)
+                                                              : 0.f);
+    }
+    const float t_inflow = t_riv +
+                           list_sum(&a.se(L_T_SUB, 0), erow, a.kel, n3) +
+                           list_sum(&a.se(L_T_SURF, 0), erow, a.kel, n3);
+    a.out[3 * ne + nr + l] =
+        -t_evap + (t_inflow * ta - inflow * t_ta) / (ta * ta);
+  }
+}
+
+template <bool T, bool D>
+__global__ void phase_c(Args a) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < a.ne)
+    cell_assembly<T, D>(a, t);
+  else if (t < a.ne + a.nr)
+    reach_assembly<T, D>(a, t - a.ne);
+  else if (t < a.ne + a.nr + a.nl)
+    lake_assembly<T, D>(a, t - a.ne - a.nr);
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// pointer order of the entry points (mega.py _kernel_pointers)
+Args make_args(void* const* p, const int* d) {
+  Args a;
+  a.cell_f = static_cast<const float*>(p[0]);
+  a.cell_i = static_cast<const int*>(p[1]);
+  a.edge_f = static_cast<const float*>(p[2]);
+  a.edge_i = static_cast<const int*>(p[3]);
+  a.seg_f = static_cast<const float*>(p[4]);
+  a.seg_i = static_cast<const int*>(p[5]);
+  a.riv_f = static_cast<const float*>(p[6]);
+  a.riv_i = static_cast<const int*>(p[7]);
+  a.seg_to_ele = static_cast<const int*>(p[8]);
+  a.seg_to_riv = static_cast<const int*>(p[9]);
+  a.riv_up = static_cast<const int*>(p[10]);
+  a.edge_to_lake = static_cast<const int*>(p[11]);
+  a.riv_to_lake = static_cast<const int*>(p[12]);
+  a.lake_zmin = static_cast<const float*>(p[13]);
+  a.bathy_y = static_cast<const float*>(p[14]);
+  a.bathy_a = static_cast<const float*>(p[15]);
+  a.fcell = static_cast<const float*>(p[16]);
+  a.friv = static_cast<const float*>(p[17]);
+  a.segfu = static_cast<const float*>(p[18]);
+  a.flake = static_cast<const float*>(p[19]);
+  a.y = static_cast<const float*>(p[20]);
+  a.ty = static_cast<const float*>(p[21]);
+  a.out = static_cast<float*>(p[22]);
+  a.s = static_cast<float*>(p[23]);
+  a.ne = d[0]; a.nr = d[1]; a.ns = d[2]; a.nl = d[3];
+  a.kc = d[4]; a.kr = d[5]; a.kup = d[6]; a.kel = d[7]; a.krl = d[8];
+  a.kb = d[9]; a.close_boundary = d[10];
+  return a;
+}
+
+template <bool T, bool D>
+int launch(void* const* ptrs, const int* dims, cudaStream_t stream) {
+  Args a = make_args(ptrs, dims);
+  phase_a<T><<<blocks_for(a.ne + a.nr), kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  phase_b<T><<<blocks_for(a.ne + a.ns), kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  phase_c<T, D><<<blocks_for(a.ne + a.nr + a.nl), kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// floats of scratch one evaluation needs
+long long shud_mega_scratch_floats(int ne, int nr, int ns, int nl) {
+  long long n = 2LL * kCellFields * ne + 2LL * nr + 1LL * kSegFields * ns;
+  if (nl > 0) n += 3LL * kEdgeFields * ne;
+  return n;
+}
+
+int shud_mega_rhs(void* const* ptrs, const int* dims, cudaStream_t stream) {
+  return launch<false, false>(ptrs, dims, stream);
+}
+
+int shud_mega_jvp(void* const* ptrs, const int* dims, cudaStream_t stream) {
+  return launch<true, false>(ptrs, dims, stream);
+}
+
+int shud_mega_diag(void* const* ptrs, const int* dims, cudaStream_t stream) {
+  return launch<false, true>(ptrs, dims, stream);
+}
+
+}  // extern "C"

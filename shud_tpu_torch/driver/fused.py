@@ -3,9 +3,12 @@
 The counterpart of ``shud_tpu/driver/fused.py``.  For each window
 (``run_interval``): TSR factor -> cell forcing/PET -> bucket update -> BC
 overlay -> adaptive implicit solve -> one diagnostics RHS, accumulated into
-interval means.  JAX runs the windows as one ``lax.scan`` inside one jit;
-here they are a Python loop whose tensors stay on the device, and the
-host receives the interval means and the per-window river stages.
+interval means.  With the megakernel on (``FusedSimulation.create(mega=)``,
+``core/mega.py``) the solve and the diagnostics each take one kernel call
+per evaluation on the flat state.  JAX runs the windows as one
+``lax.scan`` inside one jit; here they are a Python loop whose tensors
+stay on the device, and the host receives the interval means and the
+per-window river stages.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from shud_tpu_torch.core import mega as mega_mod
 from shud_tpu_torch.core import physics as ph
 from shud_tpu_torch.core import solar as solar_mod
 from shud_tpu_torch.core.device import TorchMesh, to_torch
@@ -161,6 +165,8 @@ def run_interval(
     bc_tables=None,  # optional (per-window BC value tables, column maps)
     et_mode: int = 0,
     per_edge_out: bool = False,  # accumulate QeleSub/Surf per-edge means
+    mega: "mega_mod.MegaTables | None" = None,  # the megakernel's tables
+    mega_kernel: bool = True,  # False: the mega path on its plain versions
 ):
     """Advance *n_windows* solver windows; returns (bdf state, buckets,
     mean_e, mean_r, mean_l, stages [W, Nr], qdowns [W, Nr])."""
@@ -222,21 +228,35 @@ def run_interval(
             riv_ybc=riv_ybc, riv_qbc=riv_qbc,
         )
 
-        def f(tt, yy, params):
-            mesh, slc = params
-            return rhs(mesh, slc, tt, yy, close_boundary=close_boundary)
-
         qfn = None
         if st.quad is not None:
-            def qfn(tt, yy, params):
-                return quad_rates(params[0], params[1], tt, yy,
-                                  close_boundary)
-        st = solve_to(f, st, tout, (dm, fs), cfg, qfn)
+            def qfn(tt, yy, _params):
+                return quad_rates(dm, fs, tt, yy, close_boundary)
+        if mega is not None:
+            # the forcing is packed once a window
+            mf = mega_mod.pack_forcing(mega, fs)
+
+            def f(tt, yy, params):
+                return mega_mod.rhs_mega(mega, params, yy, close_boundary,
+                                         mega_kernel)
+
+            st = solve_to(f, st, tout, mf, cfg, qfn)
+        else:
+            def f(tt, yy, params):
+                mesh, slc = params
+                return rhs(mesh, slc, tt, yy, close_boundary=close_boundary)
+
+            st = solve_to(f, st, tout, (dm, fs), cfg, qfn)
         y = st.y
         bk = out.state
 
-        # diagnostics at the accepted state (one extra RHS eval)
-        _, diag = rhs_full(dm, fs, tout, y, close_boundary=close_boundary)
+        # diagnostics at the accepted state (one extra RHS eval); the
+        # per-edge channels need the [Ne,3] fluxes, which only rhs_full has
+        if mega is not None and not per_edge_out:
+            diag = mega_mod.rhs_mega_diag(mega, mf, y, close_boundary,
+                                          mega_kernel)
+        else:
+            _, diag = rhs_full(dm, fs, tout, y, close_boundary=close_boundary)
         es, eu, eg = diag["es"], diag["eu"], diag["eg"]
         tu, tg, e_ic = diag["tu"], diag["tg"], diag["e_ic"]
         vals_e = {
@@ -297,6 +317,8 @@ class FusedSimulation:
     buckets: BucketState
     t: float
     last_mean_l: dict = dataclasses.field(default_factory=dict)
+    mega: "mega_mod.MegaTables | None" = None  # on: the megakernel's tables
+    mega_kernel: bool = True  # False: the mega path on its plain versions
 
     def y_dev(self) -> torch.Tensor:
         """The prognostic state as a flat device tensor."""
@@ -309,22 +331,44 @@ class FusedSimulation:
     @classmethod
     def create(cls, project: str, base: str = ".",
                float_dtype: torch.dtype = torch.float64, calib=None,
-               edge_kernel: "bool | str" = "auto", mega: bool = False,
+               edge_kernel: "bool | str" = "auto",
+               mega: "bool | str" = "auto",
+               mega_kernel: bool = True,
                inp: "ProjectInput | None" = None,
                wb_exact: "bool | None" = None,
                fr: "ForcingRuntime | None" = None,
-               device: "str | torch.device" = "cpu",
+               device: "str | torch.device" = "cuda",
                **control_overrides):
-        """Build a simulation on *device* in *float_dtype*.
+        """Build a simulation on *device* (the card unless the caller
+        asks for the CPU) in *float_dtype*.
 
         ``edge_kernel``: ``"auto"`` runs the CUDA edge-flux kernels exactly
         when the run is float32 on CUDA; ``False`` keeps their plain
         PyTorch versions there (the reference path the kernels are held
-        against); ``True`` elsewhere is refused."""
-        if mega:
-            raise NotImplementedError(
-                "the whole-RHS megakernel trio is not ported yet "
-                "(ROADMAP.md, queue: megakernel trio #4-#6)")
+        against); ``True`` elsewhere is refused.
+
+        ``mega``: the whole-RHS megakernel trio.  ``"auto"`` turns it on
+        exactly when the run is float32 on CUDA and the mesh is eligible
+        (``mega.build_mega_tables``: at most 32,768 cells, at least one
+        reach and segment, at most 64 lakes); ``True`` also on a float32
+        CPU run, where the plain versions stand in; ``True`` with another
+        dtype or on an ineligible mesh is refused.  ``mega_kernel=False``
+        keeps the mega path on the kernels' plain PyTorch versions (same
+        arithmetic, same hand tangent) on the card too: the reference path
+        the kernels are held against.
+
+        The mega path keeps the eager ``TorchMesh`` beside its tables: the
+        window's forcing (``cell_forcing``, ``et_bucket_step``) reads its
+        per-cell fields, and ``quad_rates`` (``wb_exact``) and ``rhs_full``
+        (per-edge output channels) its edge tables."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device; pass device=\"cpu\" to run on the CPU")
+        if mega not in (True, False, "auto"):
+            raise ValueError(f"mega must be True, False or 'auto': {mega!r}")
+        if mega is True and float_dtype != torch.float32:
+            raise ValueError("the megakernel path runs in float32 only")
         if inp is None:
             inp = load_project(project, base=base)
         if calib is not None:
@@ -339,7 +383,17 @@ class FusedSimulation:
 
         check_input(inp)
         md = build_mesh(inp)
-        device = torch.device(device)
+        mega_tables = None
+        if mega is True or (mega == "auto" and float_dtype == torch.float32
+                            and device.type == "cuda"):
+            mega_tables = mega_mod.build_mega_tables(md)
+            if mega_tables is None and mega is True:
+                raise ValueError(
+                    f"the mesh is not eligible for the megakernel path "
+                    f"({md.num_ele} cells, {md.num_riv} reaches, "
+                    f"{md.num_seg} segments, {md.num_lake} lakes)")
+            if mega_tables is not None:
+                mega_tables = mega_tables.to(device)
         if edge_kernel == "auto":
             edge_kernel = None
         dm = to_torch(md, float_dtype, device, edge_kernel=edge_kernel)
@@ -378,7 +432,7 @@ class FusedSimulation:
             inp=inp, md=md, dm=dm, fr=fr, tables=tables, cfg=cfg,
             bdf=bdf_init(cs.start_time, y0, cfg, quad0=quad0),
             buckets=BucketState(ic_stg=t(ic0), snow=t(snow0)),
-            t=cs.start_time,
+            t=cs.start_time, mega=mega_tables, mega_kernel=mega_kernel,
         )
 
     def window_indices(self, t0: float, n_windows: int, win: float):
@@ -406,6 +460,7 @@ class FusedSimulation:
             bc_tables=self._bc_tables(self.t, n_windows, win),
             et_mode=int(self.fr.et_mode),
             per_edge_out=bool(cs.dt_Qe_subx > 0 or cs.dt_Qe_surfx > 0),
+            mega=self.mega, mega_kernel=self.mega_kernel,
         )
         self.bdf = st
         self.buckets = bk

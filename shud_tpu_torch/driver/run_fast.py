@@ -153,15 +153,19 @@ def _to_host(tree):
 def run_project_fast(project: str, base: str = ".", end_day=None,
                      float_dtype: torch.dtype = torch.float64, verbose=True,
                      outpath=None, resume=None, inp=None,
-                     device: "str | torch.device" = "cpu", **overrides):
+                     device: "str | torch.device" = "cuda",
+                     mega: "bool | str" = "auto", **overrides):
     """Run a project through the fused driver, writing the full output set.
-    Returns the ``FusedSimulation`` at the end of the run."""
+    Returns the ``FusedSimulation`` at the end of the run.  Runs on the
+    card unless *device* says otherwise; ``mega`` as in
+    ``FusedSimulation.create``."""
     if os.environ.get("SHUD_DEBUG_TABLES", "0") not in ("0", ""):
         raise NotImplementedError("SHUD_DEBUG_TABLES is not ported yet")
     if end_day is not None:
         overrides.setdefault("day_end", end_day)
     sim = FusedSimulation.create(project, base=base, float_dtype=float_dtype,
-                                 inp=inp, device=device, **overrides)
+                                 inp=inp, device=device, mega=mega,
+                                 **overrides)
     if outpath:
         sim.inp.paths.outpath = outpath
     if resume:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from shud_tpu_torch.core.landsurface import BucketState
+from shud_tpu_torch.core.mega import unblock_tpu_state
 from shud_tpu_torch.solver.bdf import BDFState, np_dtype
 
 _INT_FIELDS = ("order", "nfe", "nsteps", "nfails", "nnifails")
@@ -52,7 +53,11 @@ def save_checkpoint(path: str, sim) -> None:
 def load_checkpoint(path: str, sim) -> None:
     """Restore state saved by :func:`save_checkpoint` (of either package)
     into *sim*, created for the same project and configuration, whose
-    state is the template for dtypes and devices."""
+    state is the template for dtypes, shapes and devices.
+
+    A JAX run on the TPU megakernel path saves its solver states in the
+    kernel's blocked ``[rows, 128]`` layout; those are unblocked into the
+    port's flat state.  Any other shape mismatch raises."""
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
     dt = np_dtype(sim.bdf.y.dtype)
@@ -61,6 +66,14 @@ def load_checkpoint(path: str, sim) -> None:
         if key not in data:
             raise KeyError(f"checkpoint {path} missing leaf {key!r}")
         v = data[key]
+        if isinstance(leaf, torch.Tensor) and v.shape != tuple(leaf.shape):
+            md = sim.md
+            flat = unblock_tpu_state(v, md.num_ele, md.num_riv, md.num_lake)
+            if flat is None or flat.shape != tuple(leaf.shape):
+                raise ValueError(
+                    f"checkpoint {path}: {key} has shape {v.shape}, the "
+                    f"simulation's is {tuple(leaf.shape)}")
+            v = flat
         if isinstance(leaf, torch.Tensor):
             new[key] = torch.as_tensor(v).to(dtype=leaf.dtype,
                                              device=leaf.device)

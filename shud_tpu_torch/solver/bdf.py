@@ -179,16 +179,13 @@ def _newton(f, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
 
 
 def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
-             quad_fn=None, ewt_scale=None) -> BDFState:
+             quad_fn=None) -> BDFState:
     """Advance the ODE to ``tout`` — one ``CVode(CV_NORMAL)`` equivalent.
     ``f(t, y, params)`` returns dy/dt.
 
     ``quad_fn(t, y, params) -> dict of 0-d rates``: optional flux
     quadrature accumulated as ``quad += h * quad_fn(t_mid, y_mid)`` on each
-    accepted step (the reference's ``SHUD_WB_DIAG_QUAD``).
-
-    ``ewt_scale``: optional tensor multiplied into the WRMS error weights
-    (padded state layouts)."""
+    accepted step (the reference's ``SHUD_WB_DIAG_QUAD``)."""
     dt = np_dtype(state.y.dtype)
     tout = dt(tout)
 
@@ -198,14 +195,12 @@ def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
     nsteps0 = state.nsteps
     s = state
     while s.t < tout - 1e-9 and s.nsteps - nsteps0 < cfg.max_steps:
-        s = _step(rhs, s, tout, params, cfg, quad_fn, ewt_scale, dt)
+        s = _step(rhs, s, tout, params, cfg, quad_fn, dt)
     return s
 
 
-def _step(rhs, s: BDFState, tout, params, cfg, quad_fn, ewt_scale, dt):
+def _step(rhs, s: BDFState, tout, params, cfg, quad_fn, dt):
     ewt = 1.0 / (cfg.rtol * torch.abs(s.y) + cfg.atol)
-    if ewt_scale is not None:
-        ewt = ewt * ewt_scale
     h = np.minimum(np.minimum(s.h, dt(cfg.h_max)), tout - s.t)
     h = np.maximum(h, dt(cfg.h_min))
     tau = s.h_prev

@@ -31,7 +31,7 @@ def _pair(variant, jd, td, nx=NX, ny=NY, **kw):
                     float_dtype=jd, mega=False, pallas_edges=False, **kw)
     b = TSim.create("synthetic",
                     inp=make_project("torch", variant, nx, ny, 1.0),
-                    float_dtype=td, **kw)
+                    float_dtype=td, device="cpu", **kw)
     return a, b
 
 
@@ -90,7 +90,7 @@ def test_run_project_fast_file_set(tmp_path):
     sim = torch_run(
         "synthetic",
         inp=_all_channels(make_project("torch", "plain", NX, NY, 1.0)),
-        end_day=1.0, verbose=False, outpath=out_t)
+        end_day=1.0, verbose=False, outpath=out_t, device="cpu")
     files = sorted(os.listdir(out_j))
     assert files == sorted(os.listdir(out_t))
     dats = [f for f in files if f.endswith(".dat")]
@@ -131,10 +131,38 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
             assert za[k].dtype == zb[k].dtype and za[k].shape == zb[k].shape, k
 
 
-def test_unported_options_refused():
+@pytest.mark.parametrize("case", ("mega_f64", "mega_ineligible",
+                                  "mega_auto_cpu", "cryosphere"))
+def test_unported_options_refused(case):
+    """Options that do not apply are refused, not silently dropped; on the
+    CPU the megakernel path is off unless asked for."""
     inp = make_project("torch", "plain", 4, 2, 1.0)
-    with pytest.raises(NotImplementedError, match="megakernel"):
-        TSim.create("synthetic", inp=inp, mega=True)
-    inp.control.cryosphere = 1
-    with pytest.raises(NotImplementedError, match="cryosphere"):
+    if case == "mega_f64":
+        with pytest.raises(ValueError, match="float32"):
+            TSim.create("synthetic", inp=inp, mega=True, device="cpu")
+    elif case == "mega_ineligible":
+        inp.rivseg = inp.rivseg[:0]
+        with pytest.raises(ValueError, match="not eligible"):
+            TSim.create("synthetic", inp=inp, mega=True,
+                        float_dtype=torch.float32, device="cpu")
+    elif case == "mega_auto_cpu":
+        sim = TSim.create("synthetic", inp=inp, float_dtype=torch.float32,
+                          device="cpu")
+        assert sim.mega is None
+    else:
+        inp.control.cryosphere = 1
+        with pytest.raises(NotImplementedError, match="cryosphere"):
+            TSim.create("synthetic", inp=inp, device="cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Without a CUDA device the entry points raise and name the CPU
+    option; nothing carries on on the CPU unasked."""
+    from shud_tpu_torch.driver.run_fast import run_project_fast
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inp = make_project("torch", "plain", 4, 2, 1.0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
         TSim.create("synthetic", inp=inp)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        run_project_fast("synthetic", inp=inp, end_day=1.0, verbose=False)

@@ -41,7 +41,7 @@ def _setup(variant, dtype=np.float32, dry_every=7):
     jd = jnp.float32 if dtype == np.float32 else jnp.float64
     td = torch.float32 if dtype == np.float32 else torch.float64
     dm_j = to_device(md_j, jd)
-    dm_t = to_torch(md_t, td)
+    dm_t = to_torch(md_t, td, "cpu")
     cu_j = JR.update_element(dm_j, *(jnp.asarray(v, jd) for v in (sf, us, gw)))
     cu_t = TR.update_element(dm_t, *(torch.tensor(v, dtype=td)
                                      for v in (sf, us, gw)))

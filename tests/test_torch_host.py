@@ -93,7 +93,7 @@ def test_port_runs_without_jax():
         from shud_tpu_torch.utils.synthetic import make_synthetic_project
         inp = make_synthetic_project(6, 4)
         md = build_mesh(inp)
-        dm = to_torch(md, torch.float64)
+        dm = to_torch(md, torch.float64, "cpu")
         ne, nr = md.num_ele, md.num_riv
         z = torch.zeros(ne, dtype=torch.float64)
         fs = ForcingSlice(z, z, z, z, z, z + 2.0, z + 1.0, z + 1.0, z, z, z,

@@ -1,10 +1,13 @@
-"""The CUDA edge-flux kernels against their plain PyTorch versions.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These need an NVIDIA GPU with nvcc (the kernels are built from
-shud_tpu_torch/csrc/edge_flux.cu at first use) and skip elsewhere; run
-them on the card with ``python -m pytest tests/test_torch_kernels.py``.
-They need no JAX.  Bars are chip_smoke.py's: q_surf scaled atol 2e-6,
-q_sub 1e-6, coefficients and tangents 1e-6, full RHS dY 2e-6.
+shud_tpu_torch/csrc/*.cu at first use) and skip elsewhere; run them on
+the card with ``python -m pytest tests/test_torch_kernels.py
+--noconftest``.  They need no JAX.  Bars are chip_smoke.py's.  Edge trio:
+q_surf scaled 2e-6, q_sub 1e-6, coefficients and tangents 1e-6, full RHS
+dY 2e-6.  Mega trio (plain, lake and branched meshes, both boundary
+modes): dY and every diagnostic field scaled 2e-6, J·v 1e-5, each
+output bitwise equal across two calls and to its plain version.
 """
 
 import numpy as np
@@ -140,3 +143,93 @@ def test_wrappers_refuse_bad_inputs(setup):
         E.edge_flux(strided, s["gw"], s["kh"], et, True)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         E.edge_flux(s["sf"].cpu(), s["gw"], s["kh"], et, True)
+
+
+@pytest.fixture(scope="module", params=("plain", "lake", "branched"))
+def mega_case(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import mega as M
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.core.state import ForcingSlice
+    from torch_variants import make_project, mega_inputs
+
+    md = build_mesh(make_project("torch", request.param, 24, 16))
+    dev = torch.device("cuda")
+    tables = M.build_mega_tables(md).to(dev)
+    fs, y, v = mega_inputs(md, seed=5)
+    forcing = M.pack_forcing(tables, ForcingSlice(
+        **{k: torch.as_tensor(a, device=dev) for k, a in fs.items()}))
+    return dict(M=M, tables=tables, forcing=forcing,
+                y=torch.as_tensor(y, device=dev),
+                v=torch.as_tensor(v, device=dev))
+
+
+def _fields(t, flat):
+    """dY split into its state blocks (sf, us, gw, river, lake)."""
+    ne, nr = t.ne, t.nr
+    return {"sf": flat[:ne], "us": flat[ne:2 * ne], "gw": flat[2 * ne:3 * ne],
+            "riv": flat[3 * ne:3 * ne + nr], "lake": flat[3 * ne + nr:]}
+
+
+@pytest.mark.parametrize("cb", (True, False))
+def test_mega_kernels(mega_case, cb):
+    c = mega_case
+    M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
+    n0 = dict(M.launch_counts)
+    dy, jv, dg = (M.mega_rhs(t, f, y, cb), M.mega_jvp(t, f, y, v, cb),
+                  M.mega_diag(t, f, y, cb))
+    again = (M.mega_rhs(t, f, y, cb), M.mega_jvp(t, f, y, v, cb),
+             M.mega_diag(t, f, y, cb))
+    plain = (M.mega_rhs_plain(t, f, y, cb), M.mega_jvp_plain(t, f, y, v, cb),
+             M.mega_diag_plain(t, f, y, cb))
+    torch.cuda.synchronize()
+    assert {k: M.launch_counts[k] - n0[k] for k in n0} == {
+        "mega_rhs": 2, "mega_jvp": 2, "mega_diag": 2}
+    for a, b in zip((dy, jv, dg), again):
+        assert torch.equal(a, b)
+    for name, (p, k) in (("dy", (plain[0], dy)), ("jv", (plain[1], jv))):
+        bar = 2e-6 if name == "dy" else 1e-5
+        for field, ref in _fields(t, p).items():
+            if ref.numel():
+                assert _scaled(ref, _fields(t, k)[field]) <= bar, (name, field)
+    got = M.diag_dict(t, dg)
+    for field, ref in M.diag_dict(t, plain[2]).items():
+        assert _scaled(ref, got[field]) <= 2e-6, field
+
+
+@pytest.mark.parametrize("cb", (True, False))
+def test_mega_kernels_match_plain_bitwise(mega_case, cb):
+    """Built without fused multiply-adds and calling the CUDA math
+    functions the plain versions call, each mega kernel gives its plain
+    version's result to the last bit, so the kernel path of a solve is the
+    plain path's."""
+    c = mega_case
+    M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
+    assert torch.equal(M.mega_rhs(t, f, y, cb), M.mega_rhs_plain(t, f, y, cb))
+    assert torch.equal(M.mega_jvp(t, f, y, v, cb),
+                       M.mega_jvp_plain(t, f, y, v, cb))
+    assert torch.equal(M.mega_diag(t, f, y, cb),
+                       M.mega_diag_plain(t, f, y, cb))
+
+
+def test_mega_rhs_jvp_through_the_kernels(mega_case):
+    """torch.func.jvp of rhs_mega launches the RHS and tangent kernels."""
+    c = mega_case
+    M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
+    n0 = dict(M.launch_counts)
+    dy, jv = torch.func.jvp(lambda yy: M.rhs_mega(t, f, yy, True), (y,), (v,))
+    torch.cuda.synchronize()
+    assert M.launch_counts["mega_rhs"] == n0["mega_rhs"] + 1
+    assert M.launch_counts["mega_jvp"] == n0["mega_jvp"] + 1
+    assert torch.equal(dy, M.mega_rhs(t, f, y, True))
+    assert torch.equal(jv, M.mega_jvp(t, f, y, v, True))
+
+
+def test_mega_wrappers_refuse_bad_inputs(mega_case):
+    c = mega_case
+    M, t, f, y = c["M"], c["tables"], c["forcing"], c["y"]
+    with pytest.raises(ValueError, match="float32"):
+        M.mega_rhs(t, f, y.double(), True)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        M.mega_rhs(t, f, y.cpu(), True)

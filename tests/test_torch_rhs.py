@@ -36,7 +36,7 @@ def _both(variant, prec, exact_parity=False):
                         JFS(**{k: jnp.asarray(v, jd) for k, v in fs.items()}),
                         0.0, jnp.asarray(y, jd), close_boundary=cb,
                         exact_parity=exact_parity)
-    out_t = TR.rhs_full(to_torch(md_t, td),
+    out_t = TR.rhs_full(to_torch(md_t, td, "cpu"),
                         TFS(**{k: torch.tensor(v, dtype=td)
                                for k, v in fs.items()}),
                         0.0, torch.tensor(y, dtype=td), close_boundary=cb,
@@ -72,7 +72,7 @@ def test_rhs_jvp_matches_f64(variant):
     v = np.random.default_rng(4).standard_normal(y.shape[0])
     dm_j = to_device(md_j, jnp.float64)
     fs_j = JFS(**{k: jnp.asarray(a) for k, a in fs.items()})
-    dm_t = to_torch(md_t, torch.float64)
+    dm_t = to_torch(md_t, torch.float64, "cpu")
     fs_t = TFS(**{k: torch.tensor(a) for k, a in fs.items()})
     _, tj = jax.jvp(lambda yy: JR.rhs(dm_j, fs_j, 0.0, yy, cb),
                     (jnp.asarray(y),), (jnp.asarray(v),))
@@ -107,7 +107,7 @@ def test_forcing_chain_matches_f64(et_mode):
         else:
             md = torch_build(inp)
             fr = torch_forcing(inp, md)
-            m = to_torch(md, torch.float64)
+            m = to_torch(md, torch.float64, "cpu")
             arr, sol, land = torch.as_tensor, TS, TL
         k = 1  # the storm day
         fac = sol.tsr_factor(m.nx, m.ny, m.nz, *(arr(a[k]) for a in (

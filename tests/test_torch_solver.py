@@ -88,7 +88,7 @@ def test_synthetic_window_matches_jax(max_order):
                        JB.bdf_init(0.0, jnp.asarray(y), cfg_j), 10.0,
                        (dm_j, fs_j), cfg_j)
 
-    dm_t = to_torch(md_t, torch.float64)
+    dm_t = to_torch(md_t, torch.float64, "cpu")
     fs_t = TFS(**{k: torch.tensor(v) for k, v in fs.items()})
     cfg_t = SolverConfig(**kw)
     st_t = solve_to(lambda t, yy, p: TR.rhs(p[0], p[1], t, yy, cb),
