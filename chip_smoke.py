@@ -20,13 +20,16 @@ script exits nonzero; nothing falls back to the CPU):
     modes, every 7th cell dry); per-call times (CUDA events, median of
     20), profiler device time, and the bound;
  5. each mega kernel against its plain version on the 32k, lake and
-    branched meshes, both boundary modes, bitwise repeatable; times and
-    bound as in 4;
+    branched meshes, both boundary modes: mega_rhs and mega_jvp bitwise
+    equal, mega_diag within its bar, all bitwise repeatable; times and
+    bound as in 4, and the device launches of one call (1, 1 and 3);
  6. the full f32 RHS and J·v: edge kernels vs plain at 131k (and the lake
-    mesh); mega vs eager at 32k;
+    mesh); mega vs eager at 32k, and the J·v as the solver calls it
+    (linearize_mega) beside torch.func.jvp of rhs_mega;
  7. each main path with every launch count set to 0 just before and read
     just after: the edge trio launched at 131k, the mega trio (and no
-    edge kernel) at 32k; output file set and finite values;
+    edge kernel) at 32k, mega_rhs once per Newton iteration and mega_jvp
+    krylov_m times; output file set and finite values;
  8. 6 storm windows on each kernel path beside its references, window by
     window, NFE within 2%: at 131k the plain f32 path, state within
     2e-5 m; at 32k the mega path on the kernels' plain versions, state
@@ -36,7 +39,8 @@ script exits nonzero; nothing falls back to the CPU):
     where any two roundings part: PERF.md section 6); one window twice,
     bitwise identical;
  9. one storm window of each path under torch.profiler: device busy time,
-    idle share, launches per NFE (reported, not checked).
+    idle share, launches per NFE, mega kernel launches per NFE (reported,
+    not checked).
 The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -67,6 +71,9 @@ MEGA_REPLACES = {
     "mega_jvp": "shud_tpu/core/pallas_mega.py:1478",
     "mega_diag": "shud_tpu/core/pallas_mega.py:1461",
 }
+# device kernel launches per call: one cooperative launch each for the RHS
+# and the tangent, three phase kernels for the diagnostics (csrc/mega.cu)
+MEGA_DEVICE_LAUNCHES = {"mega_rhs": 1, "mega_jvp": 1, "mega_diag": 3}
 # bars: the Pallas edge kernel's against XLA (tests/test_pallas_edge.py)
 BAR_Q_SURF = 2e-6
 BAR_Q_SUB = 1e-6
@@ -144,9 +151,9 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_ms_per_call(fn, reps: int = 20):
-    """Device (kernel) time per call of *fn* from torch.profiler, or None
-    when the profiler records no device time."""
+def device_per_call(fn, reps: int = 20):
+    """Device time (ms) and device launches per call of *fn* from
+    torch.profiler, or (None, None) when it records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -157,8 +164,11 @@ def device_ms_per_call(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(_self_device_us(r) for r in prof.key_averages())
-    return busy_us / 1e3 / reps if busy_us > 0 else None
+    rows = [r for r in prof.key_averages() if _self_device_us(r) > 0]
+    busy_us = sum(_self_device_us(r) for r in rows)
+    if busy_us <= 0:
+        return None, None
+    return busy_us / 1e3 / reps, sum(r.count for r in rows) / reps
 
 
 def _self_device_us(row) -> float:
@@ -298,17 +308,19 @@ def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
     """Time a kernel's wrapper and its plain version (CUDA events and
     profiler device time) and record them beside the kernel's bound."""
     ms, plain_ms = time_ms(kern), time_ms(plain)
-    dev_ms, dev_plain_ms = device_ms_per_call(kern), device_ms_per_call(plain)
+    dev_ms, dev_launches = device_per_call(kern)
+    dev_plain_ms, _ = device_per_call(plain)
     bound_ms, bound_by = bound(n_bytes, n_ops)
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call "
-        f"(CUDA events); device time {dev_ms} ms vs {dev_plain_ms} ms "
-        f"(profiler); bound {bound_ms:.5f} ms ({bound_by}: {n_bytes} B, "
-        f"{n_ops} ops)")
+        f"(CUDA events); device time {dev_ms} ms in {dev_launches} "
+        f"launches vs {dev_plain_ms} ms (profiler); bound {bound_ms:.5f} ms "
+        f"({bound_by}: {n_bytes} B, {n_ops} ops)")
     results[name] = {"max_abs_err": max_abs_err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None}
     device_times[name] = {"device_ms": dev_ms,
-                          "plain_device_ms": dev_plain_ms}
+                          "plain_device_ms": dev_plain_ms,
+                          "device_launches_per_call": dev_launches}
 
 
 def phase_rhs(md, lake_md, torch, summary):
@@ -474,10 +486,16 @@ def phase_mega_kernels(meshes, torch, mega, results, device_times):
             worst["mega_diag"] = max(errs.values())
             check(worst["mega_diag"] <= BAR_MEGA_RHS,
                   f"mega_diag disagrees on {name} cb={cb}: {errs}")
-            same = all(torch.equal(a, b) for a, b in zip(outs, plain))
+            # the solve on the kernels is the solve on the plain versions
+            # only if the RHS and the tangent equal them to the last bit
+            for kname, a, b in zip(("mega_rhs", "mega_jvp"), outs, plain):
+                check(torch.equal(a, b), f"{kname} is not bitwise equal to "
+                      f"its plain version on {name} cb={cb}")
+            diag_same = torch.equal(outs[2], plain[2])
             log(f"  {name} cb={cb}: scaled err " + " ".join(
                 f"{k} {e:.3e}" for k, e in worst.items())
-                + f"; bitwise repeatable; bitwise equal to plain {same}")
+                + "; bitwise repeatable; mega_rhs and mega_jvp bitwise "
+                f"equal to plain; mega_diag bitwise equal {diag_same}")
             for kname, a, b in zip(MEGA_REPLACES, outs, plain):
                 err[kname] = max(err[kname], abs_err(b, a))
 
@@ -497,6 +515,12 @@ def phase_mega_kernels(meshes, torch, mega, results, device_times):
     for name, (kern, plain) in calls.items():
         timed(name, kern, plain, *mega_work(t, f, name), err[name], results,
               device_times)
+        # rounded: the profiler may drop a record of the 20 calls
+        want = MEGA_DEVICE_LAUNCHES[name]
+        got = device_times[name]["device_launches_per_call"]
+        check(got is not None and round(got) == want,
+              f"{name}: {got} device launches per call in the profile, "
+              f"{want} expected")
 
 
 def phase_mega_rhs(md, torch, mega):
@@ -524,13 +548,20 @@ def phase_mega_rhs(md, torch, mega):
         return torch.func.jvp(lambda yy: rhs(dm, fs, 0.0, yy, True),
                               (y,), (v,))[1]
 
+    # the J·v as the solver calls it: linearized once, then one tangent
+    # call per Krylov vector
+    _, jv_solver = mega.linearize_mega(t, f, y, True)
+    check(torch.equal(jv_solver(v), jv_mega()),
+          "the solver's J·v differs from torch.func.jvp of rhs_mega")
     out = {"rhs_mega_ms": time_ms(lambda: mega.rhs_mega(t, f, y, True)),
            "rhs_eager_ms": time_ms(lambda: rhs(dm, fs, 0.0, y, True)),
+           "jvp_solver_ms": time_ms(lambda: jv_solver(v)),
            "jvp_mega_ms": time_ms(jv_mega), "jvp_eager_ms": time_ms(jv_eager)}
-    log("  32k per evaluation: rhs mega %.4f ms, eager %.4f ms; J.v mega "
-        "%.4f ms, eager %.4f ms (CUDA events)" % (
-            out["rhs_mega_ms"], out["rhs_eager_ms"], out["jvp_mega_ms"],
-            out["jvp_eager_ms"]))
+    log("  32k per evaluation: rhs mega %.4f ms, eager %.4f ms; J.v as the "
+        "solver calls it %.4f ms, torch.func.jvp of rhs_mega %.4f ms, of "
+        "the eager rhs %.4f ms (CUDA events)" % (
+            out["rhs_mega_ms"], out["rhs_eager_ms"], out["jvp_solver_ms"],
+            out["jvp_mega_ms"], out["jvp_eager_ms"]))
     return out
 
 def expected_files(sim) -> set:
@@ -574,7 +605,7 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     end_min = start_min + minutes
     for k in kernels:
         k.reset_launch_counts()
-    syncs0 = bdf.host_syncs
+    syncs0, iters0 = bdf.host_syncs, bdf.newton_iters
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     sim = run_project_fast("synthetic", inp=inp, end_day=end_min / 1440.0,
@@ -583,12 +614,12 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
-    syncs = bdf.host_syncs - syncs0
+    syncs, iters = bdf.host_syncs - syncs0, bdf.newton_iters - iters0
     ne = sim.md.num_ele
     nfe, nsteps = sim.bdf.nfe, sim.bdf.nsteps
     log(f"  main path: {ne} cells, simulated minutes {start_min:g}-"
-        f"{end_min:g}, nsteps {nsteps}, "
-        f"nfe {nfe}, wall {wall:.2f} s, host syncs {syncs}")
+        f"{end_min:g}, nsteps {nsteps}, nfe {nfe}, Newton iterations "
+        f"{iters}, wall {wall:.2f} s, host syncs {syncs}")
     log(f"  cell-steps/s (NumEle x NFE / wall): {ne * nfe / wall:.6g}")
     log(f"  launches: {counts}; per NFE "
         + " ".join(f"{k} {n / nfe:.3f}" for k, n in counts.items()))
@@ -606,7 +637,8 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
             check(data.size > 1 and bool(np.isfinite(data).all()),
                   f"{f}: empty or non-finite")
     return dict(start_min=start_min, sim_minutes=minutes, nsteps=nsteps,
-                nfe=nfe, wall_s=wall, host_syncs=syncs,
+                nfe=nfe, newton_iters=iters, krylov_m=sim.cfg.krylov_m,
+                wall_s=wall, host_syncs=syncs,
                 cell_steps_per_s=ne * nfe / wall, num_ele=ne,
                 output_files=len(files), launches=counts,
                 mega=sim.mega is not None)
@@ -712,16 +744,25 @@ def phase_profile(inp, torch, **kw):
     top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:10]
     nfe = sim.bdf.nfe - nfe0
     launches = sum(c for _, us, c in rows if us > 0)
+    # mega.cu's kernels by name: the one-launch RHS and tangent, and the
+    # diagnostics' three phases
+    mega_launches = {kind: sum(c for k, us, c in rows if us > 0 and pat in k)
+                     for kind, pat in (("fused", "::fused<"),
+                                       ("diag_phases", "::phase_"))}
     prof_summary = {
         "window_wall_s": wall, "nfe": nfe, "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / wall) if busy_s > 0 else None,
         "kernel_launches": launches, "launches_per_nfe": launches / nfe,
+        "mega_launches": mega_launches,
+        "mega_launches_per_nfe": {k: n / nfe for k, n in
+                                  mega_launches.items()},
         "top_device_ms": {k[:60]: round(us / 1e3, 3) for k, us, _ in top},
     }
     log(f"  one storm window under the profiler: wall {wall:.3f} s, nfe "
         f"{nfe}, device busy {busy_s:.3f} s, idle share "
         f"{prof_summary['device_idle_share']}, {launches} launches "
-        f"({launches / nfe:.1f} per NFE)")
+        f"({launches / nfe:.1f} per NFE); mega kernel launches per NFE "
+        + ", ".join(f"{k} {n / nfe:.3f}" for k, n in mega_launches.items()))
     for k, us, c in top:
         log(f"    {us / 1e3:9.3f} ms  {c:6d}x  {k[:70]}")
     return prof_summary
@@ -826,6 +867,13 @@ def main() -> int:
         for k in absent.launch_counts:
             check(run["launches"][k] == 0, f"{k} launched on {name}")
         check(run["mega"] == (want is mega), f"{name}: wrong RHS path")
+        if want is mega:
+            # linearized once per Newton iteration: one RHS launch, then
+            # one tangent launch per Krylov vector
+            it, m = run["newton_iters"], run["krylov_m"]
+            check(run["launches"]["mega_rhs"] == it
+                  and run["launches"]["mega_jvp"] == m * it,
+                  f"{name}: {run['launches']} for {it} Newton iterations")
         counts.update({k: run["launches"][k] for k in want.launch_counts})
         summary[f"main_{name}"] = run
 

@@ -97,8 +97,10 @@ def load_library() -> ctypes.CDLL:
     pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     for name in ("shud_mega_rhs", "shud_mega_jvp", "shud_mega_diag"):
         getattr(lib, name).argtypes = [pp, ip, p]
+    lib.shud_mega_occupancy.argtypes = [i, ip]
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,
-               lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag):
+               lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag,
+               lib.shud_mega_occupancy):
         fn.restype = ctypes.c_int
     lib.shud_mega_scratch_floats.argtypes = [i, i, i, i]
     lib.shud_mega_scratch_floats.restype = ctypes.c_longlong

@@ -27,10 +27,18 @@ Tangent conventions are the megakernel's hand tangent, not autodiff:
 path's ``absolute`` gives 1 there).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``rhs_mega`` is what the solver calls:
-inside ``torch.func.jvp`` it goes through ``MegaFunction``, whose forward
-launches the primal kernel and whose ``jvp`` the tangent kernel, so a J·v
-is two launches as in JAX.
+launches the kernel or raises.  ``mega_rhs`` and ``mega_jvp`` are one
+launch each (``csrc/mega.cu``), ``mega_diag`` three.  The tables are
+checked once (``MegaTables.to``), a forcing once (``pack_forcing``), and a
+call checks only its states; outside a ``torch.func`` transform it calls
+the library directly with pointers and scratch cached on the tables.
+
+The solver linearizes once per Newton iteration (``linearize_mega``, its
+``linearize`` hook): one RHS call, then one tangent call per Krylov
+vector, as ``jax.linearize`` with the custom JVP rule gives the JAX
+solver.  ``rhs_mega`` serves callers inside ``torch.func.jvp`` through
+``MegaFunction``, whose forward launches the RHS kernel and whose ``jvp``
+the tangent kernel.
 """
 
 from __future__ import annotations
@@ -122,12 +130,16 @@ class MegaTables:
     lake_w: torch.Tensor  # [Nl] f32: 1 / number of the lake's cells
 
     def to(self, device) -> "MegaTables":
+        """The tables on *device*, checked once here for what the kernels
+        read (type and shape of every table), so no call checks them."""
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             kw[f.name] = (v.to(device).contiguous()
                           if isinstance(v, torch.Tensor) else v)
-        return MegaTables(**kw)
+        out = MegaTables(**kw)
+        _check_tables(out)
+        return out
 
 
 class MegaForcing(NamedTuple):
@@ -272,7 +284,8 @@ def _list_sum(values: torch.Tensor, lists: torch.Tensor, sign: float = 1.0):
 def pack_forcing(tables: MegaTables, fs) -> MegaForcing:
     """The counterpart of ``forcing_to_blocks`` (``pallas_mega.py:484``):
     the ten cell fields, the two river fields, ``fu_sub`` at each
-    segment's cell and the per-lake mean P and E."""
+    segment's cell and the per-lake mean P and E, checked here once for
+    what the kernels read."""
     dev = tables.cell_f.device
     f32 = torch.float32
 
@@ -289,8 +302,10 @@ def pack_forcing(tables: MegaTables, fs) -> MegaForcing:
             _weighted_list_sum(cast(fs.pot_evap), tables.cell_to_lake, w)])
     else:
         flake = fcell.new_zeros((2, 0))
-    return MegaForcing(fcell.contiguous(), friv.contiguous(),
-                       segfu.contiguous(), flake.contiguous())
+    forcing = MegaForcing(fcell.contiguous(), friv.contiguous(),
+                          segfu.contiguous(), flake.contiguous())
+    _check_forcing(tables, forcing)
+    return forcing
 
 
 def _weighted_list_sum(values, lists, w):
@@ -1133,115 +1148,257 @@ _KERNEL_TABLES = ("cell_f", "cell_i", "edge_f", "edge_i", "seg_f", "seg_i",
                   "riv_f", "riv_i", "seg_to_ele", "seg_to_riv", "riv_up",
                   "edge_to_lake", "riv_to_lake", "lake_zmin", "bathy_y",
                   "bathy_a")
+_FLOAT_TABLES = ("cell_f", "edge_f", "seg_f", "riv_f", "lake_zmin",
+                 "bathy_y", "bathy_a")
+# threads per block of the one-launch kernels (csrc/mega.cu kBlock)
+FUSED_BLOCK = 128
 
 
-def _kernel_inputs(tables: MegaTables, forcing: MegaForcing):
-    """The tensors the kernels read and their integer dimensions."""
-    tensors = [getattr(tables, n) for n in _KERNEL_TABLES] + list(forcing)
-    dims = [tables.ne, tables.nr, tables.ns, tables.nl,
-            tables.seg_to_ele.shape[1], tables.seg_to_riv.shape[1],
-            tables.riv_up.shape[1], tables.edge_to_lake.shape[1],
-            tables.riv_to_lake.shape[1], tables.bathy_y.shape[1]]
-    return tensors, dims
+def _require(name, t, dev, dtype, shape):
+    """Raise unless *t* is a contiguous *dtype* tensor on *dev* whose shape
+    matches *shape* (None matches any length)."""
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, tables on {dev}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+    if len(t.shape) != len(shape) or any(
+            w is not None and s != w for s, w in zip(t.shape, shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, the kernel "
+                         f"takes {shape}")
 
 
-def _check(tables, forcing, *states):
-    """Validate what the kernels read: one CUDA device, float32 or int32,
-    contiguous, the state of length 3Ne + Nr + Nl."""
-    dev = tables.cell_f.device
-    n = 3 * tables.ne + tables.nr + tables.nl
-    named = [(k, getattr(tables, k)) for k in _KERNEL_TABLES]
-    named += list(forcing._asdict().items())
-    named += [(f"state{i}", s) for i, s in enumerate(states)]
-    for name, t in named:
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, tables on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
-        want = torch.float32 if t.is_floating_point() else torch.int32
-        if t.dtype != want:
-            raise ValueError(f"{name} is {t.dtype}, the kernel takes {want}")
+def _check_tables(t: MegaTables) -> None:
+    """Refuse tables the kernels cannot read: every table on cell_f's
+    device, contiguous, float32 or int32, of this mesh's shape."""
+    ne, nr, ns, nl = t.ne, t.nr, t.ns, t.nl
+    shapes = {
+        "cell_f": (len(CELL_F), ne), "cell_i": (len(CELL_I), ne),
+        "edge_f": (len(EDGE_F), ne, 3), "edge_i": (len(EDGE_I), ne, 3),
+        "seg_f": (len(SEG_F), ns), "seg_i": (len(SEG_I), ns),
+        "riv_f": (len(RIV_F), nr), "riv_i": (len(RIV_I), nr),
+        "seg_to_ele": (ne, None), "seg_to_riv": (nr, None),
+        "riv_up": (nr, None), "edge_to_lake": (nl, None),
+        "riv_to_lake": (nl, None), "lake_zmin": (nl,),
+        "bathy_y": (nl, None), "bathy_a": (nl, t.bathy_y.shape[-1])}
+    dev = t.cell_f.device
+    for name, shape in shapes.items():
+        dtype = torch.float32 if name in _FLOAT_TABLES else torch.int32
+        _require(name, getattr(t, name), dev, dtype, shape)
+
+
+def _check_forcing(t: MegaTables, f: MegaForcing) -> None:
+    """Refuse a packed forcing the kernels cannot read with these tables."""
+    shapes = {"fcell": (len(FORC_CELL), t.ne), "friv": (len(FORC_RIV), t.nr),
+              "segfu": (t.ns,), "flake": (2, t.nl)}
+    for name, shape in shapes.items():
+        _require(name, getattr(f, name), t.cell_f.device, torch.float32, shape)
+
+
+def _check_states(t: MegaTables, *states) -> None:
+    """What every call checks: each state float32 of length 3Ne + Nr + Nl,
+    contiguous, on the tables' device."""
+    n = 3 * t.ne + t.nr + t.nl
     for i, s in enumerate(states):
-        if s.dtype != torch.float32 or tuple(s.shape) != (n,):
-            raise ValueError(f"state{i} is {s.dtype} {tuple(s.shape)}, the "
-                             f"kernel takes float32 ({n},)")
+        _require(f"state{i}", s, t.cell_f.device, torch.float32, (n,))
 
 
-def _launch(name: str, y, ty, tensors, dims, close_boundary: bool, n_out):
-    lib = load_library()
+def launch_plan(n_threads: int, sm_count: int, blocks_per_sm: int,
+                block: int = FUSED_BLOCK) -> int:
+    """Blocks of the one-launch kernels for *n_threads* (one per cell,
+    reach and lake).  Their grid barrier needs every block resident at
+    once, so a grid above ``sm_count * blocks_per_sm`` is refused: there is
+    no fallback.  The kernels keep to 128 registers a thread, so an SM
+    holds 65,536 / (128 x 128) = 4 blocks, and an H100's 132 SMs 67,584
+    threads, above MAX_CELLS plus the reaches and lakes of the meshes the
+    path takes."""
+    blocks = -(-n_threads // block)
+    if blocks > sm_count * blocks_per_sm:
+        raise ValueError(
+            f"{n_threads} threads in {blocks} blocks of {block} cannot be "
+            f"resident at once: the card holds {blocks_per_sm} blocks on "
+            f"each of {sm_count} SMs")
+    return blocks
+
+
+_OCCUPANCY: dict = {}
+
+
+def occupancy(with_tangent: bool) -> dict:
+    """What the card holds of the one-launch kernel (csrc/mega.cu
+    ``shud_mega_occupancy``), queried once: blocks per SM at FUSED_BLOCK
+    threads, and SMs."""
+    if with_tangent not in _OCCUPANCY:
+        out = (ctypes.c_int * 3)()
+        err = load_library().shud_mega_occupancy(int(with_tangent), out)
+        if err != 0:
+            raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+        if not out[2]:
+            raise RuntimeError("the card has no cooperative launch")
+        _OCCUPANCY[with_tangent] = dict(blocks_per_sm=out[0],
+                                        sm_count=out[1])
+    return _OCCUPANCY[with_tangent]
+
+
+def _kernel_dims(t: MegaTables) -> list:
+    return [t.ne, t.nr, t.ns, t.nl, t.seg_to_ele.shape[1],
+            t.seg_to_riv.shape[1], t.riv_up.shape[1], t.edge_to_lake.shape[1],
+            t.riv_to_lake.shape[1], t.bathy_y.shape[1]]
+
+
+class _LaunchState:
+    """What one MegaTables on the card keeps for its kernel calls, made at
+    the first call: the library's entry points, one scratch buffer (the
+    calls run in order on torch's current stream, so they can share it),
+    each kernel's dims array (the grid from launch_plan last), and the
+    pointer array of the forcing bound last (tables, forcing, state,
+    tangent, output, scratch), whose state, tangent and output slots each
+    call fills in."""
+
+    def __init__(self, t: MegaTables):
+        _check_tables(t)
+        lib = load_library()
+        dims = _kernel_dims(t)
+        self.fns = {k: getattr(lib, f"shud_{k}") for k in launch_counts}
+        self.scratch = torch.empty(lib.shud_mega_scratch_floats(*dims[:4]),
+                                   dtype=torch.float32, device=t.cell_f.device)
+        n_threads = t.ne + t.nr + t.nl
+        self.dims = {}
+        for name in launch_counts:
+            grid = 0  # mega_diag sizes its own three grids
+            if name != "mega_diag":
+                occ = occupancy(name == "mega_jvp")
+                grid = launch_plan(n_threads, occ["sm_count"],
+                                   occ["blocks_per_sm"])
+            for cb in (False, True):
+                self.dims[name, cb] = (ctypes.c_int * 12)(*dims, cb, grid)
+        self.forcing = None
+        self.ptrs = None
+
+    def bind(self, t: MegaTables, forcing: MegaForcing) -> None:
+        _check_forcing(t, forcing)
+        tensors = [getattr(t, n) for n in _KERNEL_TABLES] + list(forcing)
+        self.ptrs = (ctypes.c_void_p * 24)(
+            *[v.data_ptr() for v in tensors], 0, 0, 0, self.scratch.data_ptr())
+        self.forcing = forcing
+
+
+def _launch_state(t: MegaTables) -> _LaunchState:
+    st = t.__dict__.get("_launch")
+    if st is None:
+        st = t._launch = _LaunchState(t)
+    return st
+
+
+def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
+    """One kernel call outside a torch.func transform: the cached pointers
+    and scratch, three pointers set, one C call."""
+    st = _launch_state(t)
+    if st.forcing is not forcing:
+        st.bind(t, forcing)
     out = y.new_empty(n_out)
-    scratch = y.new_empty(lib.shud_mega_scratch_floats(*dims[:4]))
-    ptrs = [t.data_ptr() for t in (*tensors, y, ty, out, scratch)]
-    arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    dim_arr = (ctypes.c_int * 11)(*dims, int(close_boundary))
-    err = getattr(lib, f"shud_{name}")(
-        arr, dim_arr, torch.cuda.current_stream().cuda_stream)
+    p = st.ptrs
+    p[20], p[21], p[22] = y.data_ptr(), ty.data_ptr(), out.data_ptr()
+    err = st.fns[name](p, st.dims[name, bool(close_boundary)],
+                       torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
     return out
 
 
-# The launches are dispatcher ops (torch.library.custom_op), so that inside
-# torch.func transforms they receive plain tensors with storage.
+def _launch(name: str, y, ty, tensors, dims, n_out):
+    """One kernel call from a dispatcher op (inside a torch.func
+    transform): pointers and scratch made for the call."""
+    lib = load_library()
+    out = y.new_empty(n_out)
+    scratch = y.new_empty(lib.shud_mega_scratch_floats(*dims[:4]))
+    ptrs = [t.data_ptr() for t in (*tensors, y, ty, out, scratch)]
+    err = getattr(lib, f"shud_{name}")(
+        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * 12)(*dims),
+        torch.cuda.current_stream(y.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+    return out
+
+
+# Inside torch.func transforms the launches are dispatcher ops
+# (torch.library.custom_op), so that they receive plain tensors with
+# storage; outside they call the library directly.
 
 
 @torch.library.custom_op("shud_tpu_torch::mega_rhs", mutates_args=(),
                          device_types="cuda")
 def _mega_rhs_op(y: torch.Tensor, tensors: list[torch.Tensor],
-                 dims: list[int], close_boundary: bool) -> torch.Tensor:
-    return _launch("mega_rhs", y, y, tensors, dims, close_boundary,
-                   y.shape[0])
+                 dims: list[int]) -> torch.Tensor:
+    return _launch("mega_rhs", y, y, tensors, dims, y.shape[0])
 
 
 @torch.library.custom_op("shud_tpu_torch::mega_jvp", mutates_args=(),
                          device_types="cuda")
 def _mega_jvp_op(y: torch.Tensor, ty: torch.Tensor,
-                 tensors: list[torch.Tensor], dims: list[int],
-                 close_boundary: bool) -> torch.Tensor:
-    return _launch("mega_jvp", y, ty, tensors, dims, close_boundary,
-                   y.shape[0])
+                 tensors: list[torch.Tensor], dims: list[int]) -> torch.Tensor:
+    return _launch("mega_jvp", y, ty, tensors, dims, y.shape[0])
 
 
 @torch.library.custom_op("shud_tpu_torch::mega_diag", mutates_args=(),
                          device_types="cuda")
 def _mega_diag_op(y: torch.Tensor, tensors: list[torch.Tensor],
-                  dims: list[int], close_boundary: bool,
-                  n_out: int) -> torch.Tensor:
-    return _launch("mega_diag", y, y, tensors, dims, close_boundary, n_out)
+                  dims: list[int], n_out: int) -> torch.Tensor:
+    return _launch("mega_diag", y, y, tensors, dims, n_out)
+
+
+def _call(name, tables, forcing, y, ty, close_boundary, n_out):
+    """Check the states and launch *name*: directly, or through its
+    dispatcher op inside a torch.func transform."""
+    _check_states(tables, *((y,) if ty is y else (y, ty)))
+    if not torch._C._are_functorch_transforms_active():
+        return _launch_direct(name, tables, forcing, y, ty, close_boundary,
+                              n_out)
+    # inside a transform the forcing may arrive wrapped, a new tuple each
+    # call: it is checked here and passed to the op, which unwraps it
+    _check_forcing(tables, forcing)
+    tensors = [getattr(tables, n) for n in _KERNEL_TABLES] + list(forcing)
+    dims = list(_launch_state(tables).dims[name, bool(close_boundary)])
+    if name == "mega_rhs":
+        return _mega_rhs_op(y, tensors, dims)
+    if name == "mega_jvp":
+        return _mega_jvp_op(y, ty, tensors, dims)
+    return _mega_diag_op(y, tensors, dims, n_out)
 
 
 def mega_rhs(tables, forcing, y, close_boundary: bool):
-    """dY of the flat state ``[3Ne + Nr + Nl]``: one kernel call."""
+    """dY of the flat state ``[3Ne + Nr + Nl]``: one kernel launch."""
     if on_cpu(y, tables.cell_f, what="mega kernels"):
         return mega_rhs_plain(tables, forcing, y, close_boundary)
-    _check(tables, forcing, y)
-    return _mega_rhs_op(y, *_kernel_inputs(tables, forcing),
-                        bool(close_boundary))
+    return _call("mega_rhs", tables, forcing, y, y, close_boundary,
+                 y.shape[0])
 
 
 def mega_jvp(tables, forcing, y, ty, close_boundary: bool):
-    """J(y)·ty, flat: one call of the tangent kernel."""
+    """J(y)·ty, flat: one launch of the tangent kernel."""
     if on_cpu(y, ty, tables.cell_f, what="mega kernels"):
         return mega_jvp_plain(tables, forcing, y, ty, close_boundary)
-    _check(tables, forcing, y, ty)
-    return _mega_jvp_op(y, ty, *_kernel_inputs(tables, forcing),
-                        bool(close_boundary))
+    return _call("mega_jvp", tables, forcing, y, ty, close_boundary,
+                 y.shape[0])
 
 
 def mega_diag(tables, forcing, y, close_boundary: bool):
-    """The diagnostics, flat (``diag_dict`` splits them): one call."""
+    """The diagnostics, flat (``diag_dict`` splits them): one call (three
+    phase kernels)."""
     if on_cpu(y, tables.cell_f, what="mega kernels"):
         return mega_diag_plain(tables, forcing, y, close_boundary)
-    _check(tables, forcing, y)
-    return _mega_diag_op(y, *_kernel_inputs(tables, forcing),
-                         bool(close_boundary), diag_size(tables))
+    return _call("mega_diag", tables, forcing, y, y, close_boundary,
+                 diag_size(tables))
 
 
 class MegaFunction(torch.autograd.Function):
-    """The RHS with its exact hand tangent: ``forward`` runs the RHS kernel,
-    ``jvp`` the tangent kernel (which recomputes the primal); with
-    *kernel* False their plain versions, on any device."""
+    """The RHS with its exact hand tangent, for callers inside a
+    ``torch.func`` transform: ``forward`` runs the RHS kernel, ``jvp`` the
+    tangent kernel (which recomputes the primal); with *kernel* False their
+    plain versions, on any device."""
 
     @staticmethod
     def forward(y, tables, forcing, close_boundary, kernel):
@@ -1262,11 +1419,11 @@ class MegaFunction(torch.autograd.Function):
 
 
 def rhs_mega(tables, forcing, y, close_boundary: bool, kernel: bool = True):
-    """What the solver calls: dY through the RHS kernel, and under
-    ``torch.func.jvp`` through ``MegaFunction``.  *kernel* False runs the
-    plain versions with the same hand tangent, on the card too: the
-    reference path the kernels are held against.  The kernels carry no
-    reverse-mode derivative, so a call autograd would record is refused."""
+    """dY through the RHS kernel, and under ``torch.func.jvp`` through
+    ``MegaFunction``.  *kernel* False runs the plain versions with the same
+    hand tangent, on the card too: the reference path the kernels are held
+    against.  The kernels carry no reverse-mode derivative, so a call
+    autograd would record is refused."""
     if torch._C._are_functorch_transforms_active():
         return MegaFunction.apply(y, tables, forcing, close_boundary, kernel)
     if torch.is_grad_enabled() and y.requires_grad:
@@ -1275,6 +1432,21 @@ def rhs_mega(tables, forcing, y, close_boundary: bool, kernel: bool = True):
                            "supported")
     fn = mega_rhs if kernel else mega_rhs_plain
     return fn(tables, forcing, y, close_boundary)
+
+
+def linearize_mega(tables, forcing, y, close_boundary: bool,
+                   kernel: bool = True):
+    """What one Newton iteration needs at *y*, as ``jax.linearize`` gives
+    the JAX solver (``shud_tpu/solver/bdf.py:174``) through the megakernel's
+    custom JVP rule (``pallas_mega.py:1547-1570``): dY from one RHS call,
+    and a function that gives J(y)·v from one tangent call per Krylov
+    vector, outside any ``torch.func`` transform.  Its values are those of
+    ``torch.func.jvp`` of ``rhs_mega``.  *kernel* False: the plain
+    versions."""
+    rhs_fn, jvp_fn = ((mega_rhs, mega_jvp) if kernel
+                      else (mega_rhs_plain, mega_jvp_plain))
+    fy = rhs_fn(tables, forcing, y, close_boundary)
+    return fy, lambda v: jvp_fn(tables, forcing, y, v, close_boundary)
 
 
 def rhs_mega_diag(tables, forcing, y, close_boundary: bool,

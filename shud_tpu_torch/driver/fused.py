@@ -4,11 +4,12 @@ The counterpart of ``shud_tpu/driver/fused.py``.  For each window
 (``run_interval``): TSR factor -> cell forcing/PET -> bucket update -> BC
 overlay -> adaptive implicit solve -> one diagnostics RHS, accumulated into
 interval means.  With the megakernel on (``FusedSimulation.create(mega=)``,
-``core/mega.py``) the solve and the diagnostics each take one kernel call
-per evaluation on the flat state.  JAX runs the windows as one
-``lax.scan`` inside one jit; here they are a Python loop whose tensors
-stay on the device, and the host receives the interval means and the
-per-window river stages.
+``core/mega.py``) the solve linearizes once per Newton iteration (one RHS
+kernel call, one tangent kernel call per Krylov vector) and the
+diagnostics take one kernel call, all on the flat state.  JAX runs the
+windows as one ``lax.scan`` inside one jit; here they are a Python loop
+whose tensors stay on the device, and the host receives the interval
+means and the per-window river stages.
 """
 
 from __future__ import annotations
@@ -240,7 +241,13 @@ def run_interval(
                 return mega_mod.rhs_mega(mega, params, yy, close_boundary,
                                          mega_kernel)
 
-            st = solve_to(f, st, tout, mf, cfg, qfn)
+            # one RHS call per Newton iteration, one tangent call per
+            # Krylov vector (shud_tpu/solver/bdf.py:174)
+            def lin(tt, yy, params):
+                return mega_mod.linearize_mega(mega, params, yy,
+                                               close_boundary, mega_kernel)
+
+            st = solve_to(f, st, tout, mf, cfg, qfn, linearize=lin)
         else:
             def f(tt, yy, params):
                 mesh, slc = params

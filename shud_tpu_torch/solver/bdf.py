@@ -6,8 +6,9 @@ arithmetic, same NFE accounting:
 
 * variable-step, variable-order BDF(1,2,3) with history carried across
   solver windows; ``SolverConfig.max_order`` picks the cap;
-* modified Newton iterations with **exact** Jacobian-vector products from
-  ``torch.func.jvp`` of the RHS;
+* modified Newton iterations with **exact** Jacobian-vector products,
+  the RHS linearized once per iteration (``solve_to``'s ``linearize``
+  hook; by default ``torch.func.jvp`` of the RHS);
 * matrix-free GMRES(m) for the Newton linear systems (SPGMR equivalent);
 * WRMS error control with weights 1/(rtol·|y| + atol), the standard step
   controller, min/max step bounds and exact stop-at-tout.
@@ -68,6 +69,8 @@ class BDFState(NamedTuple):
 # device -> host scalar fetches made by the solver (each one waits for the
 # device); a diagnostic for the cost of the host-driven loop
 host_syncs = 0
+# Newton iterations run by the solver, each of which linearizes the RHS once
+newton_iters = 0
 
 
 def _fetch(x: torch.Tensor, dt):
@@ -150,9 +153,11 @@ def _gmres(matvec, b, m):
     return torch.where(beta > 0, x, 0.0)
 
 
-def _newton(f, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
-    """Solve y = c0 + bh·f(t_new, y) by Newton-GMRES with exact JVPs.
-    Returns (y, converged, nfe_used)."""
+def _newton(linearize, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
+    """Solve y = c0 + bh·f(t_new, y) by Newton-GMRES with exact JVPs:
+    each iteration linearizes f once at its iterate (``linearize(t, y) ->
+    (f(t, y), v -> J·v)``).  Returns (y, converged, nfe_used)."""
+    global newton_iters
     dt = np_dtype(y_guess.dtype)
     bh_f = float(bh)
     y = y_guess
@@ -160,18 +165,18 @@ def _newton(f, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
     nfe = 0
     while True:
         y_lin = y
-        fy = f(t_new, y_lin)
+        fy, jvp = linearize(t_new, y_lin)
         # residual: y - bh*f(y) - c0
         res = y_lin - bh_f * fy - c0
 
-        def matvec(v, y_lin=y_lin):
-            _, jv = torch.func.jvp(lambda yy: f(t_new, yy), (y_lin,), (v,))
-            return v - bh_f * jv
+        def matvec(v, jvp=jvp):
+            return v - bh_f * jvp(v)
 
         dy = _gmres(matvec, -res, cfg.krylov_m)
         dnorm = _fetch(_wrms(dy, ewt), dt)
         y = y_lin + dy
         it += 1
+        newton_iters += 1
         nfe += 1 + cfg.krylov_m
         if not (it < cfg.newton_iters and dnorm > cfg.newton_tol):
             break
@@ -179,27 +184,41 @@ def _newton(f, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
 
 
 def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
-             quad_fn=None) -> BDFState:
+             quad_fn=None, linearize=None) -> BDFState:
     """Advance the ODE to ``tout`` — one ``CVode(CV_NORMAL)`` equivalent.
     ``f(t, y, params)`` returns dy/dt.
 
     ``quad_fn(t, y, params) -> dict of 0-d rates``: optional flux
     quadrature accumulated as ``quad += h * quad_fn(t_mid, y_mid)`` on each
-    accepted step (the reference's ``SHUD_WB_DIAG_QUAD``)."""
+    accepted step (the reference's ``SHUD_WB_DIAG_QUAD``).
+
+    ``linearize(t, y, params) -> (f(t, y, params), v -> J(y)·v)``: what
+    each Newton iteration calls once, as the JAX solver calls
+    ``jax.linearize``.  By default f once and ``torch.func.jvp`` of f for
+    each vector (which runs f's primal again); a hook with a hand tangent
+    (``core/mega.linearize_mega``) runs the primal once an iteration."""
     dt = np_dtype(state.y.dtype)
     tout = dt(tout)
 
     def rhs(t, y):
         return f(t, y, params)
 
+    if linearize is None:
+        def lin(t, y):
+            return rhs(t, y), lambda v: torch.func.jvp(
+                lambda yy: rhs(t, yy), (y,), (v,))[1]
+    else:
+        def lin(t, y):
+            return linearize(t, y, params)
+
     nsteps0 = state.nsteps
     s = state
     while s.t < tout - 1e-9 and s.nsteps - nsteps0 < cfg.max_steps:
-        s = _step(rhs, s, tout, params, cfg, quad_fn, dt)
+        s = _step(rhs, lin, s, tout, params, cfg, quad_fn, dt)
     return s
 
 
-def _step(rhs, s: BDFState, tout, params, cfg, quad_fn, dt):
+def _step(rhs, lin, s: BDFState, tout, params, cfg, quad_fn, dt):
     ewt = 1.0 / (cfg.rtol * torch.abs(s.y) + cfg.atol)
     h = np.minimum(np.minimum(s.h, dt(cfg.h_max)), tout - s.t)
     h = np.maximum(h, dt(cfg.h_min))
@@ -272,7 +291,7 @@ def _step(rhs, s: BDFState, tout, params, cfg, quad_fn, dt):
         bh = dt(1.0) / g0
 
     t_new = s.t + h
-    y_new, conv, nfe_n = _newton(rhs, t_new, y_pred, c0, bh, ewt, cfg)
+    y_new, conv, nfe_n = _newton(lin, t_new, y_pred, c0, bh, ewt, cfg)
 
     # predictor-corrector difference estimates the LTE at this order
     err = _fetch(_wrms(y_new - y_pred, ewt) * 0.5, dt)

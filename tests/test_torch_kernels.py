@@ -7,7 +7,8 @@ the card with ``python -m pytest tests/test_torch_kernels.py
 q_surf scaled 2e-6, q_sub 1e-6, coefficients and tangents 1e-6, full RHS
 dY 2e-6.  Mega trio (plain, lake and branched meshes, both boundary
 modes): dY and every diagnostic field scaled 2e-6, J·v 1e-5, each
-output bitwise equal across two calls and to its plain version.
+output bitwise equal across two calls and to its plain version; the
+one-launch RHS and tangent kernels refuse a grid the card cannot hold.
 """
 
 import numpy as np
@@ -233,3 +234,49 @@ def test_mega_wrappers_refuse_bad_inputs(mega_case):
         M.mega_rhs(t, f, y.double(), True)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         M.mega_rhs(t, f, y.cpu(), True)
+    # a forcing not made by pack_forcing is checked when first bound
+    bad = M.MegaForcing(f.fcell.double(), f.friv, f.segfu, f.flake)
+    with pytest.raises(ValueError, match="float32"):
+        M.mega_jvp(t, bad, y, c["v"], True)
+
+
+def test_linearize_mega_on_the_card(mega_case):
+    """The solver's hook: one RHS launch, then one tangent launch per
+    vector, bitwise what torch.func.jvp of rhs_mega gives."""
+    c = mega_case
+    M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
+    n0 = dict(M.launch_counts)
+    fy, jvp = M.linearize_mega(t, f, y, True)
+    jvs = [jvp(v), jvp(2.0 * v)]
+    torch.cuda.synchronize()
+    assert M.launch_counts["mega_rhs"] == n0["mega_rhs"] + 1
+    assert M.launch_counts["mega_jvp"] == n0["mega_jvp"] + 2
+    for w, jv in zip((v, 2.0 * v), jvs):
+        dy, ref = torch.func.jvp(lambda yy: M.rhs_mega(t, f, yy, True),
+                                 (y,), (w,))
+        assert torch.equal(fy, dy) and torch.equal(jv, ref)
+
+
+def test_mega_launch_refused_when_not_resident(mega_case, monkeypatch):
+    """No fallback: a grid the card cannot hold resident is refused by
+    launch_plan before the launch, and by the cooperative launch itself;
+    a refused launch leaves the next one unharmed."""
+    import ctypes
+    import dataclasses
+
+    c = mega_case
+    M, t, f, y = c["M"], c["tables"], c["forcing"], c["y"]
+    dy = M.mega_rhs(t, f, y, True)
+    st = t._launch
+    occ = M.occupancy(False)
+    dims = list(st.dims["mega_rhs", True])
+    dims[11] = occ["blocks_per_sm"] * occ["sm_count"] + 1
+    st.ptrs[22] = torch.empty_like(y).data_ptr()
+    err = st.fns["mega_rhs"](st.ptrs, (ctypes.c_int * 12)(*dims),
+                             torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    assert torch.equal(M.mega_rhs(t, f, y, True), dy)
+    monkeypatch.setitem(M._OCCUPANCY, False, dict(occ, sm_count=1,
+                                                  blocks_per_sm=1))
+    with pytest.raises(ValueError, match="resident"):
+        M.mega_rhs(dataclasses.replace(t), f, y, True)

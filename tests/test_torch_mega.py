@@ -211,6 +211,116 @@ def test_checkpoint_of_another_mesh_refused(tmp_path):
         load_checkpoint(path, sim(4, 2))
 
 
+def test_linearize_mega_matches_func_jvp_route(monkeypatch):
+    """One storm window of the mega path (12x8, f32, CPU) through the
+    solver's linearize hook is bitwise the same window through
+    torch.func.jvp of rhs_mega, with equal steps and NFE; the hook runs the
+    RHS once per Newton iteration and the tangent krylov_m times, where
+    the func.jvp route runs the RHS 1 + krylov_m times."""
+    from shud_tpu_torch.driver import fused
+    from shud_tpu_torch.driver.fused import FusedSimulation as TSim
+    from shud_tpu_torch.solver import bdf
+
+    calls = {}
+    for name in ("mega_rhs_plain", "mega_jvp_plain"):
+        def counted(*a, _fn=getattr(TM, name), _name=name):
+            calls[_name] += 1
+            return _fn(*a)
+
+        monkeypatch.setattr(TM, name, counted)
+
+    def window():
+        inp = make_project("torch", "plain", NX, NY, 2.0)
+        inp.control.day_start = 1.0
+        sim = TSim.create("synthetic", inp=inp, float_dtype=torch.float32,
+                          mega=True, device="cpu")
+        calls.update(mega_rhs_plain=0, mega_jvp_plain=0)
+        it0 = bdf.newton_iters
+        sim.advance_interval(10.0)
+        return sim, dict(calls), bdf.newton_iters - it0
+
+    hook, calls_hook, it_hook = window()
+    solve_to = fused.solve_to
+    monkeypatch.setattr(fused, "solve_to",
+                        lambda f, st, tout, p, cfg, quad_fn, linearize:
+                        solve_to(f, st, tout, p, cfg, quad_fn))
+    ref, calls_ref, it_ref = window()
+    assert torch.equal(hook.bdf.y, ref.bdf.y)
+    assert (hook.bdf.nsteps, hook.bdf.nfe) == (ref.bdf.nsteps, ref.bdf.nfe)
+    m = hook.cfg.krylov_m
+    assert it_hook == it_ref and hook.bdf.nfe == it_hook * (1 + m) > 0
+    assert calls_hook == {"mega_rhs_plain": it_hook,
+                          "mega_jvp_plain": m * it_hook}
+    assert calls_ref == {"mega_rhs_plain": (1 + m) * it_ref,
+                         "mega_jvp_plain": m * it_ref}
+
+
+@pytest.mark.parametrize("kernel", (True, False))
+def test_linearize_mega_values(kernel):
+    """linearize_mega gives rhs_mega's dY and, for each vector, the J·v of
+    torch.func.jvp of rhs_mega, bitwise."""
+    d = case_data("lake")
+    t, f, cb = d["tables"], d["forcing"], d["cb"]
+    fy, jvp = TM.linearize_mega(t, f, d["y"], cb, kernel)
+    assert torch.equal(fy, TM.rhs_mega(t, f, d["y"], cb, kernel))
+    for v in (d["v"], 0.5 * d["v"]):
+        _, jv = torch.func.jvp(lambda yy: TM.rhs_mega(t, f, yy, cb, kernel),
+                               (d["y"],), (v,))
+        assert torch.equal(jvp(v), jv)
+
+
+@pytest.mark.parametrize("case,n_threads", (
+    ("mega ceiling", TM.MAX_CELLS + 128 + TM.MAX_LAKES),
+    ("all 528 blocks", 132 * 4 * 128)))
+def test_launch_plan_fits_the_card(case, n_threads):
+    """At 128 registers a thread an SM holds 65,536 / (128 x 128) = 4
+    blocks of 128 threads: on an H100's 132 SMs one thread per cell,
+    reach and lake of the largest mega mesh fits."""
+    assert TM.launch_plan(n_threads, 132, 4) == -(-n_threads // 128)
+
+
+@pytest.mark.parametrize("case,n_threads,blocks_per_sm", (
+    ("one block too many", 132 * 4 * 128 + 1, 4),
+    ("at 255 registers", 132 * 2 * 128 + 1, 2),
+    ("no block fits", 1, 0)))
+def test_launch_plan_refuses_what_cannot_be_resident(case, n_threads,
+                                                     blocks_per_sm):
+    with pytest.raises(ValueError, match="resident"):
+        TM.launch_plan(n_threads, 132, blocks_per_sm)
+
+
+@pytest.mark.parametrize("bad,match", (
+    ("float64 cell_f", "float32"), ("int64 seg_to_ele", "int32"),
+    ("short seg_f", "shape"), ("edge_f without slots", "shape")))
+def test_tables_checked_at_to(bad, match):
+    """What the kernel calls used to check of the tables on every call is
+    checked once, when the tables move to their device."""
+    t = case_data("plain")["tables"]
+    change = {"float64 cell_f": {"cell_f": t.cell_f.double()},
+              "int64 seg_to_ele": {"seg_to_ele": t.seg_to_ele.long()},
+              "short seg_f": {"seg_f": t.seg_f[:, 1:]},
+              "edge_f without slots": {"edge_f": t.edge_f[:, :, 0]}}[bad]
+    t.to("cpu")
+    with pytest.raises(ValueError, match=match):
+        dataclasses.replace(t, **change).to("cpu")
+
+
+@pytest.mark.parametrize("bad", ("cells", "reaches"))
+def test_forcing_checked_at_pack(bad):
+    """The packed forcing is checked once, in pack_forcing: a slice whose
+    cell or river fields do not have one value per cell or reach."""
+    d = case_data("plain")
+    md, t = d["md_t"], d["tables"]
+    fs, _, _ = mega_inputs(md, seed=0)
+    n, keys = ((md.num_ele + 1, [k for k in fs if k not in ("riv_ybc",
+                                                              "riv_qbc")])
+               if bad == "cells" else (md.num_riv - 1, ["riv_ybc", "riv_qbc"]))
+    fs.update({k: np.resize(fs[k], n) for k in keys})
+    with pytest.raises(ValueError, match="shape"):
+        TM.pack_forcing(t, TFS(**{k: torch.as_tensor(a)
+                                  for k, a in fs.items()}))
+
+
 @pytest.mark.parametrize("variant,start_day,minutes", (
     ("plain", 0.0, 60.0), ("lake", 0.0, 30.0), ("plain", 1.0, 30.0)),
     ids=("plain", "lake", "storm"))

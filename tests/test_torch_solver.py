@@ -65,6 +65,64 @@ def test_toy_stiff_accuracy_order3():
     assert steps[3] < steps[2], steps
 
 
+def _toy_jvp(y, v, k):
+    """J(y)·v of _toy_f, by hand, in the order torch.func.jvp takes it."""
+    return torch.stack([-k * v[0] + v[1],
+                        -0.1 * v[1] + 0.05 * (torch.cos(y[0]) * v[0])])
+
+
+class _Toy(torch.autograd.Function):
+    """_toy_f with a hand tangent, as MegaFunction carries the mega
+    kernels'; counts its primal evaluations."""
+
+    calls = 0
+
+    @staticmethod
+    def forward(y, k):
+        _Toy.calls += 1
+        return _toy_f(0.0, y, k)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.k = inputs[1]
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def jvp(ctx, ty, _t_k):
+        (y,) = ctx.saved_tensors
+        return _toy_jvp(y, ty, ctx.k)
+
+
+def test_linearize_hook_matches_func_jvp_route():
+    """A linearize hook that evaluates the primal once and the hand tangent
+    per Krylov vector gives the solve of the default route (torch.func.jvp
+    of the RHS, which re-runs the primal for every vector) bitwise, with
+    the same steps and NFE, and one primal evaluation per Newton
+    iteration instead of 1 + krylov_m."""
+    from shud_tpu_torch.solver import bdf
+
+    cfg = SolverConfig(rtol=1e-6, atol=1e-9, h_max=1e9, h_init=1e-4)
+
+    def f(t, y, k):
+        return _Toy.apply(y, k)
+
+    def lin(t, y, k):
+        return f(t, y, k), lambda v: _toy_jvp(y, v, k)
+
+    runs = {}
+    for name, kw in (("jvp", {}), ("hook", {"linearize": lin})):
+        _Toy.calls, it0 = 0, bdf.newton_iters
+        st = bdf_init(0.0, torch.tensor([1.0, 0.5], dtype=torch.float64), cfg)
+        st = solve_to(f, st, 10.0, 50.0, cfg, **kw)
+        runs[name] = (st, _Toy.calls, bdf.newton_iters - it0)
+    (a, calls_a, it_a), (b, calls_b, it_b) = runs["jvp"], runs["hook"]
+    assert torch.equal(a.y, b.y)
+    assert (a.nsteps, a.nfe, a.nfails) == (b.nsteps, b.nfe, b.nfails)
+    assert it_a == it_b and b.nfe == it_b * (1 + cfg.krylov_m) > 0
+    assert calls_b == it_b and calls_a == b.nfe
+    assert np.abs(b.y.numpy() - _toy_ref()).max() < 1e-4
+
+
 @pytest.mark.parametrize("max_order", (2, 3))
 def test_synthetic_window_matches_jax(max_order):
     from shud_tpu.core import rhs as JR
