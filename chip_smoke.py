@@ -21,15 +21,20 @@ script exits nonzero; nothing falls back to the CPU):
     20), profiler device time, and the bound;
  5. each mega kernel against its plain version on the 32k, lake and
     branched meshes, both boundary modes: mega_rhs and mega_jvp bitwise
-    equal, mega_diag within its bar, all bitwise repeatable; times and
-    bound as in 4, and the device launches of one call (1, 1 and 3);
+    and mega_diag bitwise equal, all bitwise repeatable; times and
+    bound as in 4, the device launches of one call (1 each), the
+    registers of the three instantiations of the fused kernel, and the
+    fixed cost of its design (an empty cooperative launch with 0, 1 and 2
+    grid barriers at the 32k grid); 4 and 5 also time each kernel with a
+    cold L2 (a 64 MB buffer written before each call);
  6. the full f32 RHS and J·v: edge kernels vs plain at 131k (and the lake
     mesh); mega vs eager at 32k, and the J·v as the solver calls it
     (linearize_mega) beside torch.func.jvp of rhs_mega;
  7. each main path with every launch count set to 0 just before and read
     just after: the edge trio launched at 131k, the mega trio (and no
-    edge kernel) at 32k, mega_rhs once per Newton iteration and mega_jvp
-    krylov_m times; output file set and finite values;
+    edge kernel) at 32k, mega_rhs once per Newton iteration, mega_jvp
+    krylov_m times and mega_diag once a window; output file set and
+    finite values;
  8. 6 storm windows on each kernel path beside its references, window by
     window, NFE within 2%: at 131k the plain f32 path, state within
     2e-5 m; at 32k the mega path on the kernels' plain versions, state
@@ -71,18 +76,18 @@ MEGA_REPLACES = {
     "mega_jvp": "shud_tpu/core/pallas_mega.py:1478",
     "mega_diag": "shud_tpu/core/pallas_mega.py:1461",
 }
-# device kernel launches per call: one cooperative launch each for the RHS
-# and the tangent, three phase kernels for the diagnostics (csrc/mega.cu)
-MEGA_DEVICE_LAUNCHES = {"mega_rhs": 1, "mega_jvp": 1, "mega_diag": 3}
+# device kernel launches per call: one cooperative launch of the fused
+# kernel each (csrc/mega.cu)
+MEGA_DEVICE_LAUNCHES = {"mega_rhs": 1, "mega_jvp": 1, "mega_diag": 1}
 # bars: the Pallas edge kernel's against XLA (tests/test_pallas_edge.py)
 BAR_Q_SURF = 2e-6
 BAR_Q_SUB = 1e-6
 BAR_TANGENT = 1e-6
 BAR_RHS = 2e-6
 BAR_DRIVER = 2e-5  # [m], tests/test_pallas_mega.py:254
-# mega kernels vs their plain versions, scaled per field: dY and each
-# diagnostic 2e-6, J·v 1e-5 (the issue's bars; built without fused
-# multiply-adds, the kernels have matched their plain versions bitwise)
+# mega kernels vs their plain versions, scaled per field (reported; built
+# without fused multiply-adds, each is gated bitwise equal to its plain
+# version as well): dY and each diagnostic 2e-6, J·v 1e-5
 BAR_MEGA_RHS = 2e-6
 BAR_MEGA_JVP = 1e-5
 # the mega RHS vs the eager RHS, scaled: the JAX package's megakernel
@@ -98,6 +103,8 @@ EDGE_MAIN_SPAN = (720.0, 360.0)
 # storm windows of 10 minutes on each kernel path against its references
 STORM_WINDOWS = 6
 
+# written before each call of a cold-L2 time: above the H100's 50 MB L2
+FLUSH_BYTES = 64 << 20
 # the bound: NVIDIA's published H100 SXM peaks at 700 W
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -151,24 +158,82 @@ def time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def device_per_call(fn, reps: int = 20):
+def device_per_call(fn, reps: int = 20, tries: int = 3):
     """Device time (ms) and device launches per call of *fn* from
-    torch.profiler, or (None, None) when it records no device time."""
+    torch.profiler, or (None, None) when it records no device time in
+    *tries* sessions (a session on the card has come back empty)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages() if _self_device_us(r) > 0]
+        busy_us = sum(_self_device_us(r) for r in rows)
+        if busy_us > 0:
+            return busy_us / 1e3 / reps, sum(r.count for r in rows) / reps
+    return None, None
+
+
+def device_ms(fn, before=None, n: int = 1, reps: int = 20) -> float:
+    """Median device time (ms) of *n* back-to-back calls of *fn*, divided
+    by *n*: CUDA events around the calls, queued behind a spin kernel
+    (torch.cuda._sleep) so that the host's enqueueing is hidden and the
+    events time the device alone.  *before* runs ahead of each sample,
+    outside the events (the L2 flush)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        torch.cuda._sleep(1_000_000 + 40_000 * n)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def cold_l2(fn, reps: int = 20) -> dict:
+    """*fn* with a cold L2: FLUSH_BYTES written before each call.  Device
+    time per call from CUDA events (device_ms) and from the profiler's
+    device rows of *fn*'s own launches (those of the write left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    buf = torch.empty(FLUSH_BYTES // 4, device=DEVICE)
+
+    def flush():
+        buf.fill_(1.0)
+
+    ev_ms = device_ms(fn, before=flush, reps=reps)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as p0:
+        flush()
+        torch.cuda.synchronize()
+    flush_keys = {r.key for r in p0.key_averages() if _self_device_us(r) > 0}
+    with profile(activities=acts) as prof:
         for _ in range(reps):
+            flush()
             fn()
         torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages() if _self_device_us(r) > 0]
-    busy_us = sum(_self_device_us(r) for r in rows)
-    if busy_us <= 0:
-        return None, None
-    return busy_us / 1e3 / reps, sum(r.count for r in rows) / reps
+    rows = [r for r in prof.key_averages()
+            if _self_device_us(r) > 0 and r.key not in flush_keys]
+    prof_ms = (sum(_self_device_us(r) for r in rows) / 1e3 / reps
+               if rows else None)
+    return {"event_device_ms": ev_ms, "profiler_device_ms": prof_ms}
 
 
 def _self_device_us(row) -> float:
@@ -311,16 +376,28 @@ def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
     dev_ms, dev_launches = device_per_call(kern)
     dev_plain_ms, _ = device_per_call(plain)
     bound_ms, bound_by = bound(n_bytes, n_ops)
+    # events around one launch also hold the device's launch latency
+    # (~4 us), so the cold kernel alone is its profiler time plus the
+    # cold-minus-warm difference of the events
+    warm_ms, cold = device_ms(kern), cold_l2(kern)
+    cold["kernel_ms"] = (None if dev_ms is None
+                         else dev_ms + cold["event_device_ms"] - warm_ms)
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call "
         f"(CUDA events); device time {dev_ms} ms in {dev_launches} "
         f"launches vs {dev_plain_ms} ms (profiler); bound {bound_ms:.5f} ms "
         f"({bound_by}: {n_bytes} B, {n_ops} ops)")
+    log(f"    one launch, events: warm L2 {warm_ms:.5f} ms, cold L2 "
+        f"{cold['event_device_ms']:.5f} ms; cold kernel alone "
+        f"{cold['kernel_ms']} ms, bound {bound_ms:.5f} ms (profiler, cold: "
+        f"{cold['profiler_device_ms']} ms)")
     results[name] = {"max_abs_err": max_abs_err, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None}
     device_times[name] = {"device_ms": dev_ms,
                           "plain_device_ms": dev_plain_ms,
-                          "device_launches_per_call": dev_launches}
+                          "device_launches_per_call": dev_launches,
+                          "event_device_ms": warm_ms, "cold_l2": cold,
+                          "bound_ms": bound_ms}
 
 
 def phase_rhs(md, lake_md, torch, summary):
@@ -487,15 +564,14 @@ def phase_mega_kernels(meshes, torch, mega, results, device_times):
             check(worst["mega_diag"] <= BAR_MEGA_RHS,
                   f"mega_diag disagrees on {name} cb={cb}: {errs}")
             # the solve on the kernels is the solve on the plain versions
-            # only if the RHS and the tangent equal them to the last bit
-            for kname, a, b in zip(("mega_rhs", "mega_jvp"), outs, plain):
+            # only if the RHS and the tangent equal them to the last bit,
+            # and the window's diagnostics are then the plain path's too
+            for kname, a, b in zip(MEGA_REPLACES, outs, plain):
                 check(torch.equal(a, b), f"{kname} is not bitwise equal to "
                       f"its plain version on {name} cb={cb}")
-            diag_same = torch.equal(outs[2], plain[2])
             log(f"  {name} cb={cb}: scaled err " + " ".join(
                 f"{k} {e:.3e}" for k, e in worst.items())
-                + "; bitwise repeatable; mega_rhs and mega_jvp bitwise "
-                f"equal to plain; mega_diag bitwise equal {diag_same}")
+                + "; bitwise repeatable; all three bitwise equal to plain")
             for kname, a, b in zip(MEGA_REPLACES, outs, plain):
                 err[kname] = max(err[kname], abs_err(b, a))
 
@@ -521,6 +597,41 @@ def phase_mega_kernels(meshes, torch, mega, results, device_times):
         check(got is not None and round(got) == want,
               f"{name}: {got} device launches per call in the profile, "
               f"{want} expected")
+    regs = {name: mega.occupancy(name)["registers"] for name in calls}
+    log("  registers a thread of the fused kernel: " + ", ".join(
+        f"{k} {r}" for k, r in regs.items()))
+    n_threads = t.ne + t.nr + t.nl
+    occ = mega.occupancy("mega_rhs")
+    grid = mega.launch_plan(n_threads, occ["sm_count"], occ["blocks_per_sm"])
+    return {"registers": regs,
+            "cooperative_fixed_cost": barrier_probe(torch, grid)}
+
+
+def barrier_probe(torch, grid: int) -> dict:
+    """The fixed cost of the fused kernels' design: one cooperative launch
+    of *grid* empty blocks of 128 threads meeting at 0, 1 and 2 grid
+    barriers (csrc/mega.cu shud_mega_barrier_probe): device time per
+    launch alone and back to back (CUDA events), and the profiler's
+    device time, as the kernels' is read."""
+    from shud_tpu_torch.core.cuda_build import load_library
+
+    lib = load_library()
+    out = {"grid": grid}
+    for n_sync in (0, 1, 2):
+        def launch(n_sync=n_sync):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.shud_mega_barrier_probe(grid, n_sync, stream)
+            check(err == 0, f"barrier probe refused: CUDA error {err}")
+
+        out[f"sync{n_sync}"] = {"alone_ms": device_ms(launch),
+                                "back_to_back_ms": device_ms(launch, n=100),
+                                "profiler_ms": device_per_call(launch)[0]}
+    log(f"  empty cooperative launch, {grid} blocks of 128, device time: "
+        + "; ".join(
+            f"{k}: {v['alone_ms']:.5f} ms alone, {v['back_to_back_ms']:.5f} "
+            f"ms back to back (events), {v['profiler_ms']} ms (profiler)"
+            for k, v in out.items() if k != "grid"))
+    return out
 
 
 def phase_mega_rhs(md, torch, mega):
@@ -603,6 +714,7 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
 
     inp.control.day_start = start_min / 1440.0
     end_min = start_min + minutes
+    windows = int(round(minutes / inp.control.solver_step))
     for k in kernels:
         k.reset_launch_counts()
     syncs0, iters0 = bdf.host_syncs, bdf.newton_iters
@@ -638,7 +750,7 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
                   f"{f}: empty or non-finite")
     return dict(start_min=start_min, sim_minutes=minutes, nsteps=nsteps,
                 nfe=nfe, newton_iters=iters, krylov_m=sim.cfg.krylov_m,
-                wall_s=wall, host_syncs=syncs,
+                windows=windows, wall_s=wall, host_syncs=syncs,
                 cell_steps_per_s=ne * nfe / wall, num_ele=ne,
                 output_files=len(files), launches=counts,
                 mega=sim.mega is not None)
@@ -744,11 +856,11 @@ def phase_profile(inp, torch, **kw):
     top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:10]
     nfe = sim.bdf.nfe - nfe0
     launches = sum(c for _, us, c in rows if us > 0)
-    # mega.cu's kernels by name: the one-launch RHS and tangent, and the
-    # diagnostics' three phases
+    # mega.cu's fused kernel by name: all three instantiations, and the
+    # diagnostics' (once a window)
     mega_launches = {kind: sum(c for k, us, c in rows if us > 0 and pat in k)
                      for kind, pat in (("fused", "::fused<"),
-                                       ("diag_phases", "::phase_"))}
+                                       ("diag", "fused<false, true>"))}
     prof_summary = {
         "window_wall_s": wall, "nfe": nfe, "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / wall) if busy_s > 0 else None,
@@ -846,9 +958,9 @@ def main() -> int:
     log("phase 4: edge kernels vs plain versions (131k)")
     phase_kernels(md, torch, edge, results, device_times)
     log("phase 5: mega kernels vs plain versions (32k, lake, branched)")
-    phase_mega_kernels({"32k": md32, "lake8k": lake_md,
-                        "branched": branched_md}, torch, mega, results,
-                       device_times)
+    summary["mega_design"] = phase_mega_kernels(
+        {"32k": md32, "lake8k": lake_md, "branched": branched_md}, torch,
+        mega, results, device_times)
     summary["kernel_device_ms"] = device_times
     log("phase 6: full RHS and J.v")
     phase_rhs(md, lake_md, torch, summary)
@@ -874,6 +986,9 @@ def main() -> int:
             check(run["launches"]["mega_rhs"] == it
                   and run["launches"]["mega_jvp"] == m * it,
                   f"{name}: {run['launches']} for {it} Newton iterations")
+            check(run["launches"]["mega_diag"] == run["windows"],
+                  f"{name}: {run['launches']['mega_diag']} mega_diag "
+                  f"launches in {run['windows']} windows")
         counts.update({k: run["launches"][k] for k in want.launch_counts})
         summary[f"main_{name}"] = run
 

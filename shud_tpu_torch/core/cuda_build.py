@@ -98,9 +98,10 @@ def load_library() -> ctypes.CDLL:
     for name in ("shud_mega_rhs", "shud_mega_jvp", "shud_mega_diag"):
         getattr(lib, name).argtypes = [pp, ip, p]
     lib.shud_mega_occupancy.argtypes = [i, ip]
+    lib.shud_mega_barrier_probe.argtypes = [i, i, p]
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,
                lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag,
-               lib.shud_mega_occupancy):
+               lib.shud_mega_occupancy, lib.shud_mega_barrier_probe):
         fn.restype = ctypes.c_int
     lib.shud_mega_scratch_floats.argtypes = [i, i, i, i]
     lib.shud_mega_scratch_floats.restype = ctypes.c_longlong

@@ -27,8 +27,9 @@ Tangent conventions are the megakernel's hand tangent, not autodiff:
 path's ``absolute`` gives 1 there).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``mega_rhs`` and ``mega_jvp`` are one
-launch each (``csrc/mega.cu``), ``mega_diag`` three.  The tables are
+launches the kernel or raises.  Each is one cooperative launch of the
+fused kernel (``csrc/mega.cu``), whose grid ``launch_plan`` sizes; there
+is no fallback.  The tables are
 checked once (``MegaTables.to``), a forcing once (``pack_forcing``), and a
 call checks only its states; outside a ``torch.func`` transform it calls
 the library directly with pointers and scratch cached on the tables.
@@ -1225,20 +1226,22 @@ def launch_plan(n_threads: int, sm_count: int, blocks_per_sm: int,
 _OCCUPANCY: dict = {}
 
 
-def occupancy(with_tangent: bool) -> dict:
-    """What the card holds of the one-launch kernel (csrc/mega.cu
-    ``shud_mega_occupancy``), queried once: blocks per SM at FUSED_BLOCK
-    threads, and SMs."""
-    if with_tangent not in _OCCUPANCY:
-        out = (ctypes.c_int * 3)()
-        err = load_library().shud_mega_occupancy(int(with_tangent), out)
+def occupancy(name: str) -> dict:
+    """What the card holds of kernel *name* (a key of ``launch_counts``;
+    csrc/mega.cu ``shud_mega_occupancy``), queried once: blocks per SM at
+    FUSED_BLOCK threads, SMs, and the kernel's registers a thread."""
+    if name not in _OCCUPANCY:
+        out = (ctypes.c_int * 4)()
+        # the kernel's number in csrc/mega.cu shud_mega_occupancy
+        kernel = ("mega_rhs", "mega_jvp", "mega_diag").index(name)
+        err = load_library().shud_mega_occupancy(kernel, out)
         if err != 0:
             raise RuntimeError(f"occupancy query failed: CUDA error {err}")
         if not out[2]:
             raise RuntimeError("the card has no cooperative launch")
-        _OCCUPANCY[with_tangent] = dict(blocks_per_sm=out[0],
-                                        sm_count=out[1])
-    return _OCCUPANCY[with_tangent]
+        _OCCUPANCY[name] = dict(blocks_per_sm=out[0], sm_count=out[1],
+                                registers=out[3])
+    return _OCCUPANCY[name]
 
 
 def _kernel_dims(t: MegaTables) -> list:
@@ -1266,11 +1269,9 @@ class _LaunchState:
         n_threads = t.ne + t.nr + t.nl
         self.dims = {}
         for name in launch_counts:
-            grid = 0  # mega_diag sizes its own three grids
-            if name != "mega_diag":
-                occ = occupancy(name == "mega_jvp")
-                grid = launch_plan(n_threads, occ["sm_count"],
-                                   occ["blocks_per_sm"])
+            occ = occupancy(name)
+            grid = launch_plan(n_threads, occ["sm_count"],
+                               occ["blocks_per_sm"])
             for cb in (False, True):
                 self.dims[name, cb] = (ctypes.c_int * 12)(*dims, cb, grid)
         self.forcing = None
@@ -1386,8 +1387,8 @@ def mega_jvp(tables, forcing, y, ty, close_boundary: bool):
 
 
 def mega_diag(tables, forcing, y, close_boundary: bool):
-    """The diagnostics, flat (``diag_dict`` splits them): one call (three
-    phase kernels)."""
+    """The diagnostics, flat (``diag_dict`` splits them): one kernel
+    launch."""
     if on_cpu(y, tables.cell_f, what="mega kernels"):
         return mega_diag_plain(tables, forcing, y, close_boundary)
     return _call("mega_diag", tables, forcing, y, y, close_boundary,

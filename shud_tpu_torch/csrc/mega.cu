@@ -30,9 +30,10 @@
 // (wgmma) and TMA bring nothing to this: there is no matrix product, and
 // the loads are gathers through index tables, not tiles.
 //
-// Design of shud_mega_rhs and shud_mega_jvp: one cooperative launch of
-// fused<with_tangent>, one thread per cell, reach and lake.  The thread
-// that owns cell i keeps the cell in registers through every stage:
+// Design: each entry point is one cooperative launch of fused<T, D>
+// (T: the tangent, for shud_mega_jvp; D: the diagnostics, for
+// shud_mega_diag), one thread per cell, reach and lake.  The thread that
+// owns cell i keeps the cell in registers through every stage:
 //   A  the cell's pointwise physics (BC overlay, effective conductivity,
 //      ET, infiltration, recharge), then the cell's own segments: row i of
 //      seg_to_ele holds exactly the segments on cell i, in ascending order,
@@ -49,23 +50,19 @@
 //   -- on lake meshes only, a second grid barrier --
 //   C  one thread per lake: the bank-edge and inflow sums, the bathymetry
 //      scan and dStage.
+// The assembly writes dY (or J.v), or with D the 13 cell, 4 reach and 6
+// lake diagnostic fields (mega.py DIAG_CELL, DIAG_RIV, DIAG_LAKE); the
+// stages before it are the same code for all three.
 // A grid barrier needs every block resident at once.  __launch_bounds__
 // holds the kernels to 128 registers a thread, so an SM holds 4 blocks of
 // 128 threads and 132 SMs hold 67,584 threads, above the 32,768-cell
 // ceiling plus the reaches and lakes; mega.py's launch_plan sizes the grid
 // from the occupancy query and refuses a mesh the card cannot hold, and
-// cudaLaunchCooperativeKernel refuses such a grid too.  Nothing falls back
-// to the phase kernels.  Scratch written before a barrier is read after it
-// with plain coherent loads (no __ldg, no const __restrict__ on scratch).
-// Every list is summed in ascending order from 0 with no atomics, so every
-// output is bitwise repeatable.
-//
-// Design of shud_mega_diag (once a window): three phase kernels on the
-// given stream, because the stages depend across threads: A cells and
-// reaches pointwise, B per cell its edges and per segment its laws, C the
-// list sums, lake bucket and the diagnostic fields, with every
-// intermediate in scratch.  It is the next to move to the one-launch
-// design.
+// cudaLaunchCooperativeKernel refuses such a grid too.  Nothing falls
+// back.  Scratch written before a barrier is read after it with plain
+// coherent loads (no __ldg, no const __restrict__ on scratch).  Every list
+// is summed in ascending order from 0 with no atomics, so every output is
+// bitwise repeatable.
 //
 // Each entry point returns a CUDA error code (0 on success); the caller
 // allocates every output and the scratch (shud_mega_scratch_floats).
@@ -85,7 +82,6 @@ constexpr float kGrav = 9.8f;          // config.GRAV
 constexpr float kMaxYSurf = 0.5f;      // config.MAXYSURF
 constexpr float kEpsSlope = 0.05e-6f;  // mega._EPS_SLOPE
 constexpr float kPi = 3.1415926f;      // the reference's truncated pi
-constexpr int kThreads = 256;          // phase kernels (diagnostics)
 constexpr int kBlock = 128;            // fused kernels: mega.py FUSED_BLOCK
 constexpr int kMinBlocks = 4;          // fused blocks per SM: <= 128 registers
 
@@ -110,11 +106,8 @@ enum ForcCell { F_NET_PRCP, F_POT_EVAP, F_POT_TRAN, F_E_IC, F_LAI,
 enum ForcRiv { F_RIV_YBC, F_RIV_QBC };
 
 // scratch: per cell (tangent copies follow at +kCellFields), per reach,
-// per segment, and per edge on lake meshes.  The fused kernels publish only
-// C_GW and C_KH of the cell fields; the phase kernels use them all.
-enum ScratchCell { C_GW, C_KH, C_ACELL, C_QINF, C_QEXF, C_QRECH, C_ES,
-                   C_EU, C_EG, C_TU, C_TG, C_OWN_SURF, C_OWN_SUB,
-                   kCellFields };
+// per segment, and per edge on lake meshes
+enum ScratchCell { C_GW, C_KH, kCellFields };
 enum ScratchSeg { G_SURF, G_SUB, G_T_SURF, G_T_SUB, kSegFields };
 enum ScratchEdge { L_SURF, L_SUB, L_T_SURF, L_T_SUB, kEdgeFields };
 constexpr int kDiagCell = 13, kDiagRiv = 4;
@@ -979,11 +972,12 @@ __device__ __forceinline__ void lake_assembly(const Args& a, int l) {
 }
 
 // ---------------------------------------------------------------------------
-// shud_mega_rhs / shud_mega_jvp: one cooperative launch (see the top)
+// the one cooperative launch of every entry point (see the top)
 // ---------------------------------------------------------------------------
 
-template <bool T>
+template <bool T, bool D>
 __global__ void __launch_bounds__(kBlock, kMinBlocks) fused(Args a) {
+  static_assert(!(T && D), "the diagnostics carry no tangent");
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int ne = a.ne, nr = a.nr;
   const bool is_cell = t < ne, is_reach = !is_cell && t < ne + nr;
@@ -1025,86 +1019,22 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) fused(Args a) {
   // stage B
   if (is_cell) {
     const Flux edges = cell_edges<T>(a, t, c);
-    cell_assembly<T, false>(a, t, c, edges, e2r);
+    cell_assembly<T, D>(a, t, c, edges, e2r);
   } else if (is_reach) {
-    reach_assembly<T, false>(a, t - ne, own);
+    reach_assembly<T, D>(a, t - ne, own);
   }
   // stage C: the lakes read stage B's bank-edge fluxes
   if (a.nl > 0) {
     cg::this_grid().sync();
     const int l = t - ne - nr;
-    if (l >= 0 && l < a.nl) lake_assembly<T, false>(a, l);
+    if (l >= 0 && l < a.nl) lake_assembly<T, D>(a, l);
   }
 }
 
-// ---------------------------------------------------------------------------
-// shud_mega_diag: three phase kernels, every intermediate in scratch
-// ---------------------------------------------------------------------------
-
-// the primal cell fields phase A leaves in scratch (C_OWN_* by phase B)
-__device__ __forceinline__ CellA load_cell(const Args& a, int i) {
-  CellA c = {};
-  c.sf = a.y[i];
-  c.gw = a.sc(C_GW, i);
-  c.kh = a.sc(C_KH, i);
-  c.acell = a.sc(C_ACELL, i);
-  c.qinf = a.sc(C_QINF, i);
-  c.qexf = a.sc(C_QEXF, i);
-  c.qrech = a.sc(C_QRECH, i);
-  c.es = a.sc(C_ES, i);
-  c.eu = a.sc(C_EU, i);
-  c.eg = a.sc(C_EG, i);
-  c.tu = a.sc(C_TU, i);
-  c.tg = a.sc(C_TG, i);
-  return c;
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
+    barrier_probe(int n_sync) {
+  for (int k = 0; k < n_sync; ++k) cg::this_grid().sync();
 }
-
-__global__ void phase_a(Args a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < a.ne) {
-    const CellA c = cell_pointwise<false>(a, t);
-    const float v[] = {c.gw, c.kh, c.acell, c.qinf, c.qexf, c.qrech,
-                       c.es, c.eu, c.eg, c.tu, c.tg};
-#pragma unroll
-    for (int f = 0; f <= C_TG; ++f) a.sc(f, t) = v[f];
-  } else if (t < a.ne + a.nr) {
-    a.sr(0, t - a.ne) = reach_pointwise<false>(a, t - a.ne).q;
-  }
-}
-
-__global__ void phase_b(Args a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < a.ne) {
-    const Flux o = cell_edges<false>(a, t, load_cell(a, t));
-    a.sc(C_OWN_SURF, t) = o.surf;
-    a.sc(C_OWN_SUB, t) = o.sub;
-  } else if (t < a.ne + a.ns) {
-    const int k = t - a.ne;
-    const Flux g = segment<false>(a, k, load_cell(a, a.seg_i[S_SE * a.ns + k]));
-    a.sg(G_SURF, k) = g.surf;
-    a.sg(G_SUB, k) = g.sub;
-  }
-}
-
-__global__ void phase_c(Args a) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ne = a.ne, nr = a.nr, ns = a.ns;
-  if (t < ne) {
-    const int* row = a.seg_to_ele + t * a.kc;
-    const float* seg0 = &a.sg(0, 0);
-    const Flux e2r = {neg_list_sum(seg0 + G_SURF * ns, row, a.kc, ns),
-                      neg_list_sum(seg0 + G_SUB * ns, row, a.kc, ns), 0.f,
-                      0.f};
-    const Flux own = {a.sc(C_OWN_SURF, t), a.sc(C_OWN_SUB, t), 0.f, 0.f};
-    cell_assembly<false, true>(a, t, load_cell(a, t), own, e2r);
-  } else if (t < ne + nr) {
-    reach_assembly<false, true>(a, t - ne, Down{a.sr(0, t - ne), 0.f});
-  } else if (t < ne + nr + a.nl) {
-    lake_assembly<false, true>(a, t - ne - nr);
-  }
-}
-
-int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // pointer order of the entry points (mega.py _KERNEL_TABLES, then the
 // forcing, the state, its tangent, the output and the scratch)
@@ -1143,7 +1073,7 @@ Args make_args(void* const* p, const int* d) {
 // dims[11] is the grid in blocks of kBlock threads (mega.py launch_plan);
 // a grid that does not cover every cell, reach and lake is refused, and so
 // is one the card cannot hold resident (cudaLaunchCooperativeKernel)
-template <bool T>
+template <bool T, bool D>
 int launch_fused(void* const* ptrs, const int* dims, cudaStream_t stream) {
   Args a = make_args(ptrs, dims);
   const long long grid = dims[11];
@@ -1151,8 +1081,8 @@ int launch_fused(void* const* ptrs, const int* dims, cudaStream_t stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   void* params[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(&fused<T>), dim3(dims[11]), dim3(kBlock),
-      params, 0, stream);
+      reinterpret_cast<const void*>(&fused<T, D>), dim3(dims[11]),
+      dim3(kBlock), params, 0, stream);
   cudaGetLastError();  // a refused launch leaves no sticky error behind
   return static_cast<int>(err);
 }
@@ -1168,11 +1098,16 @@ long long shud_mega_scratch_floats(int ne, int nr, int ns, int nl) {
   return n;
 }
 
-// what the card holds of fused<with_tangent>: out = {blocks per SM (the
-// occupancy query at kBlock threads), SMs, cooperative launch supported}
-int shud_mega_occupancy(int with_tangent, int* out) {
-  const void* fn = with_tangent ? reinterpret_cast<const void*>(&fused<true>)
-                                : reinterpret_cast<const void*>(&fused<false>);
+// what the card holds of the kernel of *kernel* (0 shud_mega_rhs, 1
+// shud_mega_jvp, 2 shud_mega_diag): out = {blocks per SM (the occupancy
+// query at kBlock threads), SMs, cooperative launch supported, registers
+// a thread}
+int shud_mega_occupancy(int kernel, int* out) {
+  const void* fns[] = {reinterpret_cast<const void*>(&fused<false, false>),
+                       reinterpret_cast<const void*>(&fused<true, false>),
+                       reinterpret_cast<const void*>(&fused<false, true>)};
+  if (kernel < 0 || kernel > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1180,29 +1115,36 @@ int shud_mega_occupancy(int with_tangent, int* out) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&out[2], cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fn, kBlock,
-                                                        0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], fns[kernel],
+                                                        kBlock, 0);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fns[kernel]);
+  if (err == cudaSuccess) out[3] = attr.numRegs;
   return static_cast<int>(err);
 }
 
 int shud_mega_rhs(void* const* ptrs, const int* dims, cudaStream_t stream) {
-  return launch_fused<false>(ptrs, dims, stream);
+  return launch_fused<false, false>(ptrs, dims, stream);
 }
 
 int shud_mega_jvp(void* const* ptrs, const int* dims, cudaStream_t stream) {
-  return launch_fused<true>(ptrs, dims, stream);
+  return launch_fused<true, false>(ptrs, dims, stream);
 }
 
 int shud_mega_diag(void* const* ptrs, const int* dims, cudaStream_t stream) {
-  Args a = make_args(ptrs, dims);
-  phase_a<<<blocks_for(a.ne + a.nr), kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  phase_b<<<blocks_for(a.ne + a.ns), kThreads, 0, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  phase_c<<<blocks_for(a.ne + a.nr + a.nl), kThreads, 0, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fused<false, true>(ptrs, dims, stream);
+}
+
+// A measurement, called only by chip_smoke.py: one cooperative launch of
+// *grid* empty blocks of kBlock threads that meet at *n_sync* grid
+// barriers, the fixed cost of the fused kernels' design.
+int shud_mega_barrier_probe(int grid, int n_sync, cudaStream_t stream) {
+  void* params[] = {&n_sync};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&barrier_probe), dim3(grid), dim3(kBlock),
+      params, 0, stream);
+  cudaGetLastError();
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -7,8 +7,9 @@ the card with ``python -m pytest tests/test_torch_kernels.py
 q_surf scaled 2e-6, q_sub 1e-6, coefficients and tangents 1e-6, full RHS
 dY 2e-6.  Mega trio (plain, lake and branched meshes, both boundary
 modes): dY and every diagnostic field scaled 2e-6, J·v 1e-5, each
-output bitwise equal across two calls and to its plain version; the
-one-launch RHS and tangent kernels refuse a grid the card cannot hold.
+output bitwise equal across two calls and to its plain version; each
+mega kernel is one device launch per call and refuses a grid the card
+cannot hold.
 """
 
 import numpy as np
@@ -257,26 +258,67 @@ def test_linearize_mega_on_the_card(mega_case):
         assert torch.equal(fy, dy) and torch.equal(jv, ref)
 
 
-def test_mega_launch_refused_when_not_resident(mega_case, monkeypatch):
+def _mega_call(c, name):
+    """A function of the tables that makes one call of mega kernel
+    *name* on the case's forcing, state (and tangent)."""
+    M, f, y, v = c["M"], c["forcing"], c["y"], c["v"]
+    return {"mega_rhs": lambda t: M.mega_rhs(t, f, y, True),
+            "mega_jvp": lambda t: M.mega_jvp(t, f, y, v, True),
+            "mega_diag": lambda t: M.mega_diag(t, f, y, True)}[name]
+
+
+MEGA_KERNELS = ("mega_rhs", "mega_jvp", "mega_diag")
+
+
+@pytest.mark.parametrize("name", MEGA_KERNELS)
+def test_mega_one_device_launch_per_call(mega_case, name):
+    """Each mega kernel call is one launch on the device, of the fused
+    kernel, counted from torch.profiler's device rows as chip_smoke.py
+    phase 5 counts them (rounded: the profiler may drop a record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call, t, reps = _mega_call(mega_case, name), mega_case["tables"], 10
+    call(t)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session on the card can come back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call(t)
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages()
+                if getattr(r, "device_type", None) == DeviceType.CUDA
+                and (getattr(r, "self_device_time_total", 0)
+                     or getattr(r, "self_cuda_time_total", 0))]
+        if rows:
+            break
+    assert rows, "the profiler recorded no device time"
+    assert round(sum(r.count for r in rows) / reps) == 1
+    assert all("fused" in r.key for r in rows), [r.key for r in rows]
+
+
+@pytest.mark.parametrize("name", MEGA_KERNELS)
+def test_mega_launch_refused_when_not_resident(mega_case, monkeypatch, name):
     """No fallback: a grid the card cannot hold resident is refused by
     launch_plan before the launch, and by the cooperative launch itself;
     a refused launch leaves the next one unharmed."""
     import ctypes
     import dataclasses
 
-    c = mega_case
-    M, t, f, y = c["M"], c["tables"], c["forcing"], c["y"]
-    dy = M.mega_rhs(t, f, y, True)
+    M, t = mega_case["M"], mega_case["tables"]
+    call = _mega_call(mega_case, name)
+    ref = call(t)
     st = t._launch
-    occ = M.occupancy(False)
-    dims = list(st.dims["mega_rhs", True])
+    occ = M.occupancy(name)
+    dims = list(st.dims[name, True])
     dims[11] = occ["blocks_per_sm"] * occ["sm_count"] + 1
-    st.ptrs[22] = torch.empty_like(y).data_ptr()
-    err = st.fns["mega_rhs"](st.ptrs, (ctypes.c_int * 12)(*dims),
-                             torch.cuda.current_stream().cuda_stream)
+    st.ptrs[22] = torch.empty_like(ref).data_ptr()
+    err = st.fns[name](st.ptrs, (ctypes.c_int * 12)(*dims),
+                       torch.cuda.current_stream().cuda_stream)
     assert err != 0
-    assert torch.equal(M.mega_rhs(t, f, y, True), dy)
-    monkeypatch.setitem(M._OCCUPANCY, False, dict(occ, sm_count=1,
-                                                  blocks_per_sm=1))
+    assert torch.equal(call(t), ref)
+    monkeypatch.setitem(M._OCCUPANCY, name, dict(occ, sm_count=1,
+                                                 blocks_per_sm=1))
     with pytest.raises(ValueError, match="resident"):
-        M.mega_rhs(dataclasses.replace(t), f, y, True)
+        call(dataclasses.replace(t))

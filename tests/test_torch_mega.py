@@ -127,6 +127,38 @@ def test_mega_diag_matches_jax(case):
         assert scaled_err(ref, got) <= 2e-5, k
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_mega_diag_matches_eager_diag(case):
+    """The window diagnostics of the mega path (the kernel's plain version)
+    against the eager f32 ``rhs_full``'s, which the driver takes instead
+    when the per-edge output channels are on (driver/fused.py): every
+    same-named field, scaled 2e-5 (the mega-vs-eager RHS bar) and
+    ``2e-4|ref| + 1e-6 max|ref| + 1e-9`` element-wise.  Port code only."""
+    from shud_tpu_torch.core.device import to_torch
+    from shud_tpu_torch.core.rhs import rhs_full
+
+    md = torch_build(_project("torch", case))
+    if case == "with_bc":
+        md = with_bc(md)
+    cb = bool(_project("torch", case).control.close_boundary)
+    fs, y, _ = mega_inputs(md, seed=CASES.index(case))
+    fs = TFS(**{k: torch.as_tensor(a) for k, a in fs.items()})
+    y = torch.as_tensor(y)
+    t = TM.build_mega_tables(md)
+    got = TM.diag_dict(t, TM.mega_diag_plain(t, TM.pack_forcing(t, fs), y,
+                                             cb))
+    _, eager = rhs_full(to_torch(md, torch.float32, "cpu"), fs, 0.0, y,
+                        close_boundary=cb)
+    assert set(got) <= set(eager)
+    for k, g in got.items():
+        ref, g = eager[k].double().numpy(), g.double().numpy()
+        assert g.shape == ref.shape, k
+        tol = 2e-4 * np.abs(ref) + 1e-6 * np.abs(ref).max() + 1e-9
+        bad = np.abs(g - ref) > tol
+        assert not bad.any(), (k, int(bad.sum()), float(np.abs(g - ref).max()))
+        assert scaled_err(ref, g) <= 2e-5, k
+
+
 @pytest.mark.parametrize("kernel", (True, False))
 @pytest.mark.parametrize("case", ("plain", "lake", "branched"))
 def test_func_jvp_through_mega_function(case, kernel):
