@@ -4,12 +4,12 @@
     python3 chip_smoke.py                   # the main-path runs below
     python3 chip_smoke.py --sim-minutes 60  # shorter main-path runs
 
-Two paths, both run_project_fast in float32 on the card: the megakernel
-path at 32,768 cells for one simulated day (one kernel call per RHS, J·v
-and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072 cells
-for six simulated hours from the storm's onset (eager RHS with the edge
-trio, csrc/edge_flux.cu).  Phases (any failed check raises and the
-script exits nonzero; nothing falls back to the CPU):
+Two paths, both run_project_fast in float32 on the card, each for one
+simulated day: the megakernel path at 32,768 cells (one kernel call per
+RHS, J·v and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072
+cells (eager RHS with the edge trio, csrc/edge_flux.cu, linearized once
+per Newton iteration by rhs.linearize).  Phases (any failed check raises
+and the script exits nonzero; nothing falls back to the CPU):
  1. the card (nvidia-smi name and power limit), exit if CUDA is absent;
  2. build both CUDA sources (one nvcc each, in parallel); registers and
     spills of every kernel;
@@ -28,11 +28,16 @@ script exits nonzero; nothing falls back to the CPU):
     grid barriers at the 32k grid); 4 and 5 also time each kernel with a
     cold L2 (a 64 MB buffer written before each call);
  6. the full f32 RHS and J·v: edge kernels vs plain at 131k (and the lake
-    mesh); mega vs eager at 32k, and the J·v as the solver calls it
+    mesh), and the J·v as the solver calls it (rhs.linearize, one
+    edge_coeff call, then one edge_apply call per vector) against
+    torch.func.jvp of rhs, with the kernels and on the plain versions;
+    mega vs eager at 32k, and the J·v as the solver calls it
     (linearize_mega) beside torch.func.jvp of rhs_mega;
  7. each main path with every launch count set to 0 just before and read
-    just after: the edge trio launched at 131k, the mega trio (and no
-    edge kernel) at 32k, mega_rhs once per Newton iteration, mega_jvp
+    just after: at 131k edge_coeff once per Newton iteration, edge_apply
+    krylov_m times and edge_flux once a window (the diagnostics; the run
+    has no water-balance quadrature), no mega kernel; at 32k the mega
+    trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
     krylov_m times and mega_diag once a window; output file set and
     finite values;
  8. 6 storm windows on each kernel path beside its references, window by
@@ -43,7 +48,16 @@ script exits nonzero; nothing falls back to the CPU):
     runs are (the storm then brings cells to the infiltration switch,
     where any two roundings part: PERF.md section 6); one window twice,
     bitwise identical;
- 9. one storm window of each path under torch.profiler: device busy time,
+ 9. the cryosphere: a frosty window (-4.5 C, the frozen fractions below 1
+    for a day) and 6 storm windows on each kernel path beside its
+    reference, NFE within 2%: at 32k the mega kernels bitwise equal to
+    the mega path on their plain versions, at 131k the edge kernels
+    within 2e-5 m of the plain f32 path;
+10. the per-window driver (Simulation.advance_window) at 131k over 6
+    storm windows beside FusedSimulation: within 2e-5 m, NFE within 2%;
+11. the command line in fresh processes: python -m shud_tpu_torch -h
+    exits 0, -g exits nonzero;
+12. one storm window of each path under torch.profiler: device busy time,
     idle share, launches per NFE, mega kernel launches per NFE (reported,
     not checked).
 The line before the last is a JSON object of the six kernels; the last is
@@ -97,11 +111,17 @@ DEVICE = "cuda"
 # (nx, ny) of make_synthetic_project, 2 nx ny cells: the edge-flux path,
 # the mega path (the JAX package's 32,768-cell ceiling), the lake mesh
 EDGE_MESH, MEGA_MESH, LAKE_MESH = (256, 256), (128, 128), (64, 64)
-# the edge path's main-path run: from the storm's onset, six simulated
-# hours (a whole day there takes ~5 minutes of the script's time limit)
-EDGE_MAIN_SPAN = (720.0, 360.0)
+# the edge path's main-path run, (start, minutes): the whole first day,
+# storm from minute 720 (cut to six hours while each Krylov vector re-ran
+# the primal through torch.func.jvp)
+EDGE_MAIN_SPAN = (0.0, 1440.0)
 # storm windows of 10 minutes on each kernel path against its references
 STORM_WINDOWS = 6
+# the cryosphere phase: one window at this temperature [C] before the
+# storm, whose first accumulator flush holds for a day: fu_surf
+# 1 - (-1 + 4.5) / 4 = 0.125, fu_sub 1 - (-3 + 4.5) / 7 = 0.786 (the
+# calibration's default bounds)
+FROST_C = -4.5
 
 # written before each call of a cold-L2 time: above the H100's 50 MB L2
 FLUSH_BYTES = 64 << 20
@@ -401,9 +421,11 @@ def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
 
 
 def phase_rhs(md, lake_md, torch, summary):
-    """Phase 5: the full f32 RHS with vs without the kernels."""
+    """Phase 6: the full f32 RHS with vs without the kernels; at 131k the
+    J·v as the solver calls it (rhs.linearize) against torch.func.jvp of
+    rhs, with the kernels and on their plain versions."""
     from shud_tpu_torch.core.device import to_torch
-    from shud_tpu_torch.core.rhs import rhs
+    from shud_tpu_torch.core.rhs import linearize, rhs
 
     dev = torch.device(DEVICE)
     for name, mesh in (("131k", md), ("lake64", lake_md)):
@@ -431,15 +453,34 @@ def phase_rhs(md, lake_md, torch, summary):
         e = scaled_err(jp, jk)
         log(f"  J.v {name}: scaled err {e:.3e}")
         check(e <= BAR_RHS, "J.v with kernels disagrees")
+        # the solver's J·v: linearized once (the coefficient kernel in the
+        # primal), then one apply kernel and tensor arithmetic a vector
+        for dm, ref, what in ((dm_k, jk, "kernels"), (dm_p, jp, "plain")):
+            dy_h, jv_h = linearize(dm, fs, 0.0, y, cb)
+            dy_r = rhs(dm, fs, 0.0, y, cb)
+            got = jv_h(v)
+            torch.cuda.synchronize()
+            e_dy, e_jv = scaled_err(dy_r, dy_h), scaled_err(ref, got)
+            log(f"  linearize {name} ({what}): dY scaled err {e_dy:.3e} "
+                f"(bitwise {torch.equal(dy_r, dy_h)}), J.v vs "
+                f"torch.func.jvp scaled err {e_jv:.3e}")
+            check(e_dy <= BAR_RHS and e_jv <= BAR_RHS,
+                  f"rhs.linearize disagrees with rhs / torch.func.jvp "
+                  f"({what})")
+        _, jv_h = linearize(dm_k, fs, 0.0, y, cb)
         summary["rhs_ms"] = time_ms(lambda: rhs(dm_k, fs, 0.0, y, cb))
         summary["rhs_plain_ms"] = time_ms(lambda: rhs(dm_p, fs, 0.0, y, cb))
         summary["jvp_ms"] = time_ms(lambda: jv(dm_k))
         summary["jvp_plain_ms"] = time_ms(lambda: jv(dm_p))
-        log("  rhs per eval: kernel %.3f ms, plain %.3f ms; J.v: kernel "
-            "%.3f ms, plain %.3f ms" % (summary["rhs_ms"],
-                                        summary["rhs_plain_ms"],
-                                        summary["jvp_ms"],
-                                        summary["jvp_plain_ms"]))
+        summary["linearize_ms"] = time_ms(
+            lambda: linearize(dm_k, fs, 0.0, y, cb))
+        summary["jvp_solver_ms"] = time_ms(lambda: jv_h(v))
+        log("  rhs per eval: kernel %.3f ms, plain %.3f ms; J.v by "
+            "torch.func.jvp: kernel %.3f ms, plain %.3f ms; as the solver "
+            "calls it: linearize %.3f ms, then %.3f ms a J.v (CUDA events)"
+            % (summary["rhs_ms"], summary["rhs_plain_ms"],
+               summary["jvp_ms"], summary["jvp_plain_ms"],
+               summary["linearize_ms"], summary["jvp_solver_ms"]))
 
 
 def mega_slice(md, device, seed):
@@ -756,16 +797,29 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
                 mega=sim.mega is not None)
 
 
-def storm_sim(inp, torch, float_dtype=None, **kw):
-    """A simulation from the storm's onset (minute 720), where the surface
-    wets: before it the surface is dry and any two paths agree trivially."""
+def storm_sim(inp, torch, float_dtype=None, start=720.0, per_window=False,
+              **kw):
+    """A simulation from the storm's onset (minute 720, or *start*), where
+    the surface wets: before it the surface is dry and any two paths agree
+    trivially.  *per_window*: the per-window driver's Simulation instead
+    of FusedSimulation."""
     from shud_tpu_torch.driver.fused import FusedSimulation
+    from shud_tpu_torch.driver.simulate import Simulation
 
-    start = copy.deepcopy(inp)
-    start.control.day_start = 0.5
-    return FusedSimulation.create(
-        "synthetic", inp=start, float_dtype=float_dtype or torch.float32,
-        device=DEVICE, **kw)
+    at = copy.deepcopy(inp)
+    at.control.day_start = start / 1440.0
+    cls = Simulation if per_window else FusedSimulation
+    return cls.create("synthetic", inp=at,
+                      float_dtype=float_dtype or torch.float32,
+                      device=DEVICE, **kw)
+
+
+def advance(sim, minutes: float):
+    """One window of either driver."""
+    if hasattr(sim, "advance_interval"):
+        sim.advance_interval(minutes)
+    else:
+        sim.advance_window(sim.t + minutes)
 
 
 def max_gap(a, b):
@@ -779,27 +833,32 @@ def max_gap(a, b):
     return float(d[i]), block, i - off
 
 
-def phase_paths(inp, torch, paths: dict, gated: dict, what: str):
+def phase_paths(inp, torch, paths: dict, gated: dict, what: str,
+                start: float = 720.0, n_windows: int = STORM_WINDOWS,
+                bitwise: tuple = (), repeat: bool = True, after=None):
     """Storm windows on several paths side by side: 6 windows of 10
-    minutes from the storm's onset, window by window.  *paths* maps a name
-    to FusedSimulation.create's keywords, the kernel path first.  After
-    each window, max |dy| of every pair of paths, and where.  Each pair
-    "a-b" in *gated* is held to |dy| < 2e-5 m after every window; a pair
-    gated with the name of another pair only after the windows where that
-    pair (the reference path in float32 and float64) is itself within
-    2e-5 m.  NFE of each path within 2% of the kernel path's.  Wall and
-    cell-steps/s of each; then one window twice on the kernel path,
-    bitwise identical."""
-    sims = {n: storm_sim(inp, torch, **kw) for n, kw in paths.items()}
+    minutes from the storm's onset (*n_windows* from minute *start*),
+    window by window.  *paths* maps a name to the keywords of
+    ``storm_sim``, the kernel path first.  After each window, max |dy| of
+    every pair of paths, and where.  Each pair "a-b" in *gated* is held to
+    |dy| < 2e-5 m after every window; a pair gated with the name of
+    another pair only after the windows where that pair (the reference
+    path in float32 and float64) is itself within 2e-5 m; each pair in
+    *bitwise* to equal states.  NFE of each path within 2% of the kernel
+    path's.  Wall and cell-steps/s of each; then (*repeat*) one window
+    twice on the kernel path, bitwise identical.  *after(sims)* adds its
+    dict of checks to the result."""
+    sims = {n: storm_sim(inp, torch, start=start, **kw)
+            for n, kw in paths.items()}
     names = list(sims)
     pairs = [(a, b) for i, a in enumerate(names) for b in names[i + 1:]]
     walls = dict.fromkeys(names, 0.0)
     windows = []
-    for w in range(STORM_WINDOWS):
+    for w in range(n_windows):
         for name, sim in sims.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sim.advance_interval(10.0)
+            advance(sim, 10.0)
             torch.cuda.synchronize()
             walls[name] += time.perf_counter() - t0
         gaps = {f"{a}-{b}": max_gap(sims[a], sims[b]) for a, b in pairs}
@@ -812,6 +871,9 @@ def phase_paths(inp, torch, paths: dict, gated: dict, what: str):
             check(gaps[pair][0] < BAR_DRIVER,
                   f"{what}: {pair} parts by {gaps[pair][0]:.3e} m "
                   f"(window {w})")
+        for a, b in bitwise:
+            check(torch.equal(sims[a].bdf.y, sims[b].bdf.y),
+                  f"{what}: {a} and {b} not bitwise equal (window {w})")
         windows.append({k: g[0] for k, g in gaps.items()})
     kernel = sims[names[0]]
     out = {n: {"wall_s": walls[n], "nfe": s.bdf.nfe,
@@ -826,13 +888,67 @@ def phase_paths(inp, torch, paths: dict, gated: dict, what: str):
         check(abs(sim.bdf.nfe - kernel.bdf.nfe) <= 0.02 * sim.bdf.nfe,
               f"{what}: NFE of {name} differs by more than 2%")
     out["max_dy"] = windows
+    if after is not None:
+        out.update(after(sims))
+    if repeat:
+        c, e = (storm_sim(inp, torch, start=start, **paths[names[0]])
+                for _ in range(2))
+        advance(c, 10.0)
+        advance(e, 10.0)
+        same = torch.equal(c.bdf.y, e.bdf.y) and c.bdf.nfe == e.bdf.nfe
+        log(f"  one storm window twice on the kernel path: bitwise equal "
+            f"{same}")
+        check(same, "kernel path is not deterministic")
+    return out
 
-    c, e = (storm_sim(inp, torch, **paths[names[0]]) for _ in range(2))
-    c.advance_interval(10.0)
-    e.advance_interval(10.0)
-    same = torch.equal(c.bdf.y, e.bdf.y) and c.bdf.nfe == e.bdf.nfe
-    log(f"  one storm window twice on the kernel path: bitwise equal {same}")
-    check(same, "kernel path is not deterministic")
+
+def frost_project(inp):
+    """*inp* with the cryosphere on and the forcing record before the
+    storm (minutes -720 to 720) at FROST_C: a window from minute 710
+    flushes the accumulators' first "day" at FROST_C, and the frozen
+    fractions hold through the storm windows that follow."""
+    cold = copy.deepcopy(inp)
+    cold.control.cryosphere = 1
+    cold.forc.data[0][0, 1] = FROST_C
+    return cold
+
+
+def frozen_fractions(sims) -> dict:
+    """fu_surf and fu_sub of the kernel path's cryosphere state, checked
+    below 1 (some cells' subsurface fluxes cut)."""
+    from shud_tpu_torch.core.cryo import acc_temp_mean
+    from shud_tpu_torch.core.landsurface import frozen_fraction
+
+    sim = sims["kernel"]
+    gc = sim.inp.calib
+    fu = {"fu_surf": 1.0 - frozen_fraction(acc_temp_mean(sim.cryo.surf),
+                                            gc.fzn_surfmax, gc.fzn_surfmin),
+          "fu_sub": 1.0 - frozen_fraction(acc_temp_mean(sim.cryo.sub),
+                                           gc.fzn_submax, gc.fzn_submin)}
+    out = {f"{k}_{f}": float(getattr(v, f)()) for k, v in fu.items()
+           for f in ("min", "max")}
+    log("  frozen fractions: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in out.items()))
+    check(out["fu_sub_min"] < 1.0, "the cryosphere cut no subsurface flux")
+    return out
+
+
+def phase_cli(torch) -> dict:
+    """The command line in fresh processes on the card's host: -h exits 0,
+    a refused flag (-g) exits nonzero with its message."""
+    out = {}
+    for name, argv, ok, text in (
+            ("help", ["-h"], True, "--per-window"),
+            ("split", ["-g", "synthetic"], False, "driver/uncoupled.py")):
+        r = subprocess.run([sys.executable, "-m", "shud_tpu_torch", *argv],
+                           capture_output=True, text=True, cwd=ROOT,
+                           timeout=300)
+        log(f"  python -m shud_tpu_torch {' '.join(argv)}: exit "
+            f"{r.returncode}")
+        check((r.returncode == 0) == ok and text in (r.stdout + r.stderr),
+              f"python -m shud_tpu_torch {argv}: exit {r.returncode}, "
+              f"{r.stderr[-500:]}")
+        out[name] = r.returncode
     return out
 
 
@@ -885,6 +1001,7 @@ def main() -> int:
     ap.add_argument("--sim-minutes", type=float, default=1440.0,
                     help="simulated span of each main-path run (minutes)")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
 
@@ -979,10 +1096,19 @@ def main() -> int:
         for k in absent.launch_counts:
             check(run["launches"][k] == 0, f"{k} launched on {name}")
         check(run["mega"] == (want is mega), f"{name}: wrong RHS path")
+        it, m = run["newton_iters"], run["krylov_m"]
+        if want is edge:
+            # linearized once per Newton iteration (the coefficient kernel
+            # in the primal), one apply per Krylov vector; edge_flux only
+            # in the window diagnostics (no quad_rates: SHUD_WB_DIAG off)
+            n = run["launches"]
+            check(n["edge_coeff"] == it and n["edge_apply"] == m * it
+                  and n["edge_flux"] == run["windows"],
+                  f"{name}: {n} for {it} Newton iterations in "
+                  f"{run['windows']} windows")
         if want is mega:
             # linearized once per Newton iteration: one RHS launch, then
             # one tangent launch per Krylov vector
-            it, m = run["newton_iters"], run["krylov_m"]
             check(run["launches"]["mega_rhs"] == it
                   and run["launches"]["mega_jvp"] == m * it,
                   f"{name}: {run['launches']} for {it} Newton iterations")
@@ -1003,10 +1129,32 @@ def main() -> int:
                                    "float_dtype": torch.float64}},
         {"kernel-plain": None, "kernel-eager": "eager-eager64"},
         "32k mega")
-    log("phase 9: profile of one storm window on each path")
+    log("phase 9: the cryosphere, a frosty window and 6 storm windows")
+    summary["cryo_mega_32k"] = phase_paths(
+        frost_project(inp32), torch,
+        {"kernel": {}, "plain": {"mega_kernel": False}},
+        {"kernel-plain": None}, "32k mega, frozen ground", start=710.0,
+        n_windows=STORM_WINDOWS + 1, bitwise=(("kernel", "plain"),),
+        repeat=False, after=frozen_fractions)
+    summary["cryo_edge_131k"] = phase_paths(
+        frost_project(inp), torch,
+        {"kernel": {}, "plain": {"edge_kernel": False}},
+        {"kernel-plain": None}, "131k edge kernels, frozen ground",
+        start=710.0, n_windows=STORM_WINDOWS + 1, repeat=False,
+        after=frozen_fractions)
+    log("phase 10: the per-window driver vs the fused driver (131k)")
+    summary["per_window_131k"] = phase_paths(
+        inp, torch, {"per_window": {"per_window": True}, "fused": {}},
+        {"per_window-fused": None}, "131k per-window vs fused",
+        repeat=False)
+    log("phase 11: the command line")
+    summary["cli"] = phase_cli(torch)
+    log("phase 12: profile of one storm window on each path")
     summary["profile_edge_131k"] = phase_profile(inp, torch)
     summary["profile_mega_32k"] = phase_profile(inp32, torch)
 
+    summary["script_s"] = time.perf_counter() - t_script
+    log(f"script: {summary['script_s']:.1f} s")
     log(json.dumps({"summary": summary}))
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep[name],
                     launches=counts[name], **results[name])

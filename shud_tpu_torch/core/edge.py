@@ -19,12 +19,15 @@ Three functions, each with a plain PyTorch version and a CUDA kernel
 * ``edge_apply``: that multiply-add for one tangent (one J·v).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  ``edge_fluxes`` is what the RHS calls:
-primal-only calls go to ``edge_flux``; under ``torch.func.jvp`` it goes
-through ``EdgeFluxFunction``, whose forward is ``edge_coeff`` and whose
-``jvp`` is ``edge_apply``.  The tangent follows JAX's conventions (0.5 at
-``maximum`` ties, select at ``where``), so it equals ``jax.jvp`` of the
-reference's XLA path.
+launches the kernel or raises.  The solver's linearization
+(``rhs.linearize``, once per Newton iteration) calls ``edge_coeff`` in its
+primal and ``edge_apply`` once per Krylov vector, as JAX's ``custom_jvp``
+does.  ``edge_fluxes`` is what ``rhs`` calls: primal-only calls go to
+``edge_flux``; under ``torch.func.jvp`` (the reference route the hook is
+held against) it goes through ``EdgeFluxFunction``, whose forward is
+``edge_coeff`` and whose ``jvp`` is ``edge_apply``.  The tangent follows
+JAX's conventions (0.5 at ``maximum`` ties, select at ``where``), so it
+equals ``jax.jvp`` of the reference's XLA path.
 """
 
 from __future__ import annotations

@@ -15,6 +15,13 @@ Tangent conventions follow JAX's, so ``torch.func.jvp`` of the port equals
 * ``absolute`` is ``where(x >= 0, x, -x)``: tangent +1 at 0, like
   ``jnp.abs`` (``torch.abs`` gives 0);
 * ``cbrt`` (torch has none) is a ``pow`` seed plus one Newton polish.
+
+The ``*_lin`` functions give the same laws' partial derivatives as plain
+tensors (the factors ``rhs.linearize`` saves once per Newton iteration):
+each returns one coefficient per state-dependent argument, so that the
+tangent is their sum of products with the arguments' tangents, under the
+same conventions (``d_max``/``d_min`` 0.5 at a tie, ``d_abs`` +1 at 0, a
+``where`` selects, a mask carries no tangent).
 """
 
 from __future__ import annotations
@@ -41,6 +48,16 @@ __all__ = [
     "weir_flow_jtoi_local",
     "flux_r2e_gw",
     "fun_da_to_dy",
+    "d_max",
+    "d_min",
+    "d_abs",
+    "pow23_lin",
+    "sat_k_fun_lin",
+    "manning_equation_lin",
+    "weir_flow_jtoi_lin",
+    "weir_flow_jtoi_local_lin",
+    "flux_r2e_gw_lin",
+    "fun_da_to_dy_lin",
 ]
 
 
@@ -223,3 +240,151 @@ def fun_da_to_dy(da, w_top, s):
     EPS_SLOPE = 0.05e-6
     dy = torch.where(s_abs < EPS_SLOPE, da / w_top, quad)
     return torch.where(da == 0.0, 0.0, dy)
+
+
+# ---------------------------------------------------------------------------
+# partial derivatives (the factors of rhs.linearize)
+# ---------------------------------------------------------------------------
+
+
+def _sel(cond, a, b, like):
+    return torch.where(cond, _const(a, like), _const(b, like))
+
+
+def d_max(x: torch.Tensor, v) -> torch.Tensor:
+    """d maximum(x, v) / dx for a *v* without tangent: 1 above, 0.5 at a
+    tie, 0 below."""
+    return torch.where(x > v, _const(1.0, x), _sel(x == v, 0.5, 0.0, x))
+
+
+def d_min(x: torch.Tensor, v) -> torch.Tensor:
+    """d minimum(x, v) / dx: 1 below, 0.5 at a tie, 0 above."""
+    return torch.where(x < v, _const(1.0, x), _sel(x == v, 0.5, 0.0, x))
+
+
+def d_abs(x: torch.Tensor) -> torch.Tensor:
+    """d absolute(x) / dx: +1 at and above 0, -1 below."""
+    return _sel(x >= 0.0, 1.0, -1.0, x)
+
+
+def pow23_lin(x):
+    """d pow23(x) / dx: d (t t) with t = cbrt(max(x, tiny)), dt = 1/(3t²)."""
+    return d_max(x, _TINY) * (2.0 / 3.0) / cbrt(maximum(x, _TINY))
+
+
+def sat_k_fun_lin(satn, n):
+    """d sat_k_fun(satn, n) / d satn (``pow``'s tangent y x^(y-1))."""
+    p = n / (n - 1.0)
+    q = (n - 1.0) / n
+    b = 1.0 - satn**p
+    temp = -1.0 + b**q
+    dtemp = q * b ** (q - 1.0) * -(p * satn ** (p - 1.0))
+    root = torch.sqrt(satn)
+    return temp * temp / (2.0 * root) + 2.0 * root * temp * dtemp
+
+
+def manning_equation_lin(area, rough, r, s):
+    """(d/d area, d/d r, d/d s) of ``manning_equation``."""
+    sqrt_s = torch.sqrt(maximum(absolute(s), _TINY))
+    p23 = pow23(r)
+    sgn = _sel(s > 0, 1.0, -1.0, s)
+    c_area = sgn * sqrt_s * p23 / rough
+    c_r = sgn * sqrt_s * area * pow23_lin(r) / rough
+    c_s = (sgn * d_max(absolute(s), _TINY) * d_abs(s) / (2.0 * sqrt_s)
+           * area * p23 / rough)
+    return c_area, c_r, c_s
+
+
+def _weir_f_lin(y, cwr, width):
+    """d/dy of cwr·sqrt(2g·max(y, tiny))·width·y·60."""
+    root = torch.sqrt(2.0 * GRAV * maximum(y, _TINY))
+    return cwr * (GRAV * d_max(y, _TINY) / root * y + root) * width * 60.0
+
+
+def weir_flow_jtoi_lin(zi, yi, zj, yj, zbank, cwr, width, threshold):
+    """(d/d yi, d/d yj) of ``weir_flow_jtoi`` (zi, zj, zbank fixed)."""
+    hi = yi + zi
+    hj = yj + zj
+    dh = hj - hi
+    y0 = hi - zbank
+    y_pos = torch.where(hi > zbank, dh, y0)
+    f_pos = torch.where((y0 > 0.0) & (yj > threshold),
+                        _weir_f_lin(y_pos, cwr, width), 0.0)
+    y_neg = torch.where(hj > zbank, -dh, y0)
+    f_neg = torch.where((y0 > 0.0) & (yi > threshold),
+                        -_weir_f_lin(y_neg, cwr, width), 0.0)
+    # d y_pos = where(hi > zbank, dyj - dyi, dyi); d y_neg = where(hj >
+    # zbank, dyi - dyj, dyi)
+    up = dh > 0.0
+    c_yi = torch.where(up, f_pos * _sel(hi > zbank, -1.0, 1.0, hi), f_neg)
+    c_yj = torch.where(up, f_pos * _sel(hi > zbank, 1.0, 0.0, hi),
+                       f_neg * _sel(hj > zbank, -1.0, 0.0, hj))
+    return c_yi, c_yj
+
+
+def weir_flow_jtoi_local_lin(y0, yj, yi, cwr, width, threshold):
+    """(d/d y0, d/d yj) of ``weir_flow_jtoi_local`` (yi only gates)."""
+    dh = yj - y0
+    y_pos = torch.where(y0 > 0.0, dh, y0)
+    f_pos = torch.where((y0 > 0.0) & (yj > threshold),
+                        _weir_f_lin(y_pos, cwr, width), 0.0)
+    y_neg = torch.where(yj > 0.0, -dh, y0)
+    f_neg = torch.where((y0 > 0.0) & (yi > threshold),
+                        -_weir_f_lin(y_neg, cwr, width), 0.0)
+    # d y_pos = where(y0 > 0, dyj - dy0, dy0); d y_neg = where(yj > 0,
+    # dy0 - dyj, dy0)
+    up = dh > 0.0
+    c_y0 = torch.where(up, f_pos * _sel(y0 > 0.0, -1.0, 1.0, y0), f_neg)
+    c_yj = torch.where(up, f_pos * _sel(y0 > 0.0, 1.0, 0.0, y0),
+                       f_neg * _sel(yj > 0.0, -1.0, 0.0, yj))
+    return c_y0, c_yj
+
+
+def flux_r2e_gw_lin(yr, zr, ye, ze, k_ele, k_riv, length, d_riv):
+    """(d/d yr, d/d ye, d/d k_ele) of ``flux_r2e_gw``."""
+    k = 0.5 * (k_ele + k_riv)
+    he = ye + ze
+    hr = yr + zr
+    dh = hr - he
+    g = dh / d_riv
+    above = he > zr
+    a_r2e = torch.where(above, (yr + (he - zr)) * 0.5 * length, yr * length)
+    a_e2r = (yr + (he - zr)) * 0.5 * length
+    half = 0.5 * length
+    kg = k * g
+    # d a_r2e = where(above, (dyr + dye) L/2, dyr L); d g = (dyr - dye)/d
+    r2e = (torch.where(above, half, length) * kg + a_r2e * k / d_riv,
+           torch.where(above, half, 0.0) * kg - a_r2e * k / d_riv,
+           a_r2e * 0.5 * g)
+    e2r = (half * kg + a_e2r * k / d_riv, half * kg - a_e2r * k / d_riv,
+           a_e2r * 0.5 * g)
+    live_r2e = (dh > ZERO) & ~(yr < EPSILON)
+    live_e2r = (dh < -ZERO) & (ye > ZERO)
+    dead = (k_ele < ZERO) | (k_riv < ZERO)
+    return tuple(
+        torch.where(dead, 0.0, torch.where(
+            live_r2e, c1, torch.where(live_e2r, c2, 0.0)))
+        for c1, c2 in zip(r2e, e2r))
+
+
+def fun_da_to_dy_lin(da, w_top, s):
+    """(d/d da, d/d w_top) of ``fun_da_to_dy`` (s fixed)."""
+    s_abs = absolute(s)
+    cc = w_top * w_top + 4.0 * s_abs * da
+    root = torch.sqrt(maximum(cc, _TINY))
+    denom = w_top + root
+    bad = denom <= 0.0
+    dd = torch.where(bad, 1.0, denom)
+    # d cc = 2 w dw + 4 s dda; d denom = dw + d_max(cc) d cc / (2 root)
+    r = d_max(cc, _TINY) / (2.0 * root)
+    den_da = torch.where(bad, 0.0, r * 4.0 * s_abs)
+    den_w = torch.where(bad, 0.0, 1.0 + r * 2.0 * w_top)
+    q = 2.0 * da / dd
+    neg = cc < ZERO
+    quad_da = torch.where(neg, 0.0, (2.0 - q * den_da) / dd)
+    quad_w = torch.where(neg, -1.0 / (2.0 * s_abs), -q * den_w / dd)
+    flat = s_abs < 0.05e-6
+    c_da = torch.where(flat, 1.0 / w_top, quad_da)
+    c_w = torch.where(flat, -da / w_top / w_top, quad_w)
+    zero = da == 0.0
+    return torch.where(zero, 0.0, c_da), torch.where(zero, 0.0, c_w)

@@ -172,8 +172,14 @@ def flux_recharge(m, cu: CellUpdate, us, gw):
     return torch.where(skip, 0.0, qr)
 
 
+def _on_kernels(m, x) -> bool:
+    """The edge stencil runs the CUDA kernels: the mesh was built for them
+    and the state is float32 on CUDA."""
+    return m.edge_kernel and x.dtype == torch.float32 and x.is_cuda
+
+
 def edge_fluxes(m, cu: CellUpdate, sf, gw, lake_stg, close_boundary: bool,
-                exact_parity: bool = False):
+                exact_parity: bool = False, coeffs: "list | None" = None):
     """3-edge lateral surface + subsurface fluxes
     (``fun_Ele_surface``/``fun_Ele_sub``, MD_ElementFlux.cpp:35-156).
 
@@ -188,11 +194,20 @@ def edge_fluxes(m, cu: CellUpdate, sf, gw, lake_stg, close_boundary: bool,
     differences from f64-precomputed edge dz).  The lake-bank branch (few
     edges) is computed here and merged by mask, preserving the reference's
     branch priority (lake > neighbour > boundary).  ``exact_parity`` keeps
-    the reference's absolute-head operation order (f64 bit-parity)."""
+    the reference's absolute-head operation order (f64 bit-parity).
+
+    Given a list as *coeffs* (``linearize``), the interior and boundary
+    fluxes come from the coefficient kernel (its plain version off the
+    kernel path), whose six coefficient arrays are appended to the list."""
     if exact_parity:
         return _edge_fluxes_exact(m, cu, sf, gw, lake_stg, close_boundary)
     et = m.edge_tables
-    if m.edge_kernel and sf.dtype == torch.float32 and sf.is_cuda:
+    kernel = _on_kernels(m, sf)
+    if coeffs is not None:
+        fn = edge_mod.edge_coeff if kernel else edge_mod.edge_coeff_plain
+        q_surf_k, q_sub_k, *cs = fn(sf, gw, cu.eff_kh, et, close_boundary)
+        coeffs.extend(cs)
+    elif kernel:
         q_surf_k, q_sub_k = edge_mod.edge_fluxes(et, sf, gw, cu.eff_kh,
                                                  close_boundary)
     else:
@@ -314,6 +329,14 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
 
     ``m`` is the device mesh (``device.to_torch``), ``fs`` the forcing slice.
     Returns (dy, diag dict)."""
+    dy, diag, _ = _rhs(m, fs, y, close_boundary, exact_parity)
+    return dy, diag
+
+
+def _rhs(m, fs: ForcingSlice, y, close_boundary: bool, exact_parity: bool,
+         coeffs: "list | None" = None):
+    """``rhs_full``'s body: (dy, diag, the intermediates ``linearize``
+    reads).  *coeffs* as in ``edge_fluxes``."""
     ne, nr = m.num_ele, m.num_riv
     nl = m.num_lake if m.num_lake > 0 else 0
     lists = m.lists
@@ -361,7 +384,7 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
 
     # --- edge stencil ---
     q_esurf, q_esub0, q_lake_surf_e, q_lake_sub_e = edge_fluxes(
-        m, cu, sf, gw, lake_stg, close_boundary, exact_parity
+        m, cu, sf, gw, lake_stg, close_boundary, exact_parity, coeffs
     )
     q_esub = q_esub0 * fs.fu_sub[:, None]
     if nl > 0:
@@ -374,7 +397,8 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
 
     # --- segment stencil (fun_Seg_surface / fun_Seg_sub) ---
     se, sr = m.seg_ele, m.seg_riv
-    seg_isf = maximum(sf[se] - q_infil[se] + q_exfil[se], 0.0)
+    seg_isf_raw = sf[se] - q_infil[se] + q_exfil[se]
+    seg_isf = maximum(seg_isf_raw, 0.0)
     low_prec = (y.dtype == torch.float32) or not exact_parity
     if low_prec:
         # local-datum form: subtract z_surf (weir) / z_bottom (bed Darcy) —
@@ -462,10 +486,10 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
         dgw = torch.where(is_lake_cell, 0.0, dgw)
 
     # river
-    d_area = (
+    d_area_raw = (
         -q_riv_up - q_riv_surf - q_riv_sub - q_riv_down + fs.riv_qbc
     ) / m.riv_length
-    d_area = torch.maximum(d_area, -r_csa)
+    d_area = torch.maximum(d_area_raw, -r_csa)
     driv = ph.fun_da_to_dy(d_area, r_topw, m.riv_bank_slope)
     driv = torch.where(m.riv_bc > 0, 0.0, driv)
 
@@ -482,6 +506,7 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
             lists.cell_to_lake,
         )
         # clamp (f_loop, MD_f.cpp:44-47): min first, then max — not clip
+        q_lake_evap_raw = q_lake_evap
         q_lake_evap = maximum(
             torch.minimum(q_lake_evap, q_lake_prcp + lake_stg), 0.0
         )
@@ -497,7 +522,7 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
     else:
         dlake = y.new_zeros(0)
         q_lake_evap = q_lake_prcp = q_lake_surf = q_lake_sub = dlake
-        q_lake_rivin = dlake
+        q_lake_rivin = q_lake_evap_raw = dlake
         lake_area = dlake
 
     dy = torch.cat([dsf, dus, dgw, driv, dlake])
@@ -515,7 +540,16 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
         q_lake_surf=q_lake_surf, q_lake_sub=q_lake_sub,
         q_lake_rivin=q_lake_rivin, lake_area=lake_area,
     )
-    return dy, diag
+    saved = dict(
+        sf=sf, us=us, gw=gw, riv_stage=riv_stage, lake_stg=lake_stg, cu=cu,
+        ibeta=ibeta, r_topw=r_topw, r_csa=r_csa, r_per=r_per, r_hyd=r_hyd,
+        s_down=s_down, s_out=s_out, seg_isf=seg_isf,
+        seg_isf_raw=seg_isf_raw, d_area_raw=d_area_raw,
+        d_area=d_area, q_lake_evap_raw=q_lake_evap_raw,
+        q_lake_prcp=q_lake_prcp, q_lake_rivin=q_lake_rivin,
+        q_lake_surf=q_lake_surf, q_lake_sub=q_lake_sub, lake_area=lake_area,
+    )
+    return dy, diag, saved
 
 
 def _lake_toparea(m, lake_stg):
@@ -546,3 +580,368 @@ def rhs(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
         exact_parity: bool = False):
     dy, _ = rhs_full(m, fs, t, y, close_boundary, exact_parity)
     return dy
+
+
+def linearize(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
+              exact_parity: bool = False):
+    """``jax.linearize`` of ``rhs`` at *y*: ``(rhs(y), v -> J(y)·v)``.
+
+    The solver's hook (``solve_to(..., linearize=)``), called once per
+    Newton iteration as ``shud_tpu/solver/bdf.py:174`` calls
+    ``jax.linearize``.  The primal runs once: the edge fluxes come from the
+    coefficient kernel (``edge.edge_coeff``, its plain version off the
+    kernel path), as JAX's ``custom_jvp`` puts ``_edge_kernel_coeff`` in
+    the primal pass, so ``dy`` is ``rhs``'s.  Every other chain-rule factor
+    and branch mask of the RHS is kept as a plain tensor (``_tangent``),
+    and the returned J·v is tensor arithmetic on them: one ``edge_apply``
+    (the apply kernel on the kernel path), fixed-width gathers and
+    elementwise products, no ``torch.func``, autograd or dual tensors.
+    The tangent follows ``jax.jvp``'s conventions (0.5 at a ``maximum``
+    tie, ``where`` selects, +1 for ``|x|`` at 0, no tangent across a
+    switch such as ``gw + us > aq_depth``).
+
+    ``exact_parity`` (the absolute-head oracle route) is refused: its J·v
+    is ``torch.func.jvp`` of ``rhs``."""
+    if exact_parity:
+        raise ValueError("linearize follows the local-datum RHS; take "
+                         "torch.func.jvp of rhs for exact_parity=True")
+    coeffs = []
+    dy, _, saved = _rhs(m, fs, y, close_boundary, False, coeffs)
+    return dy, _tangent(m, fs, saved, coeffs)
+
+
+def _cell_update_lin(m, sf, us, gw):
+    """Tangent factors of ``update_element`` (+ the lake override):
+    d(eff_kh)/d gw, d(deficit)/d gw, and d/d(us, gw) of satn, sat_kr and
+    theta."""
+    aq, ts, tr = m.aq_depth, m.theta_s, m.theta_r
+    # eff_kh: d part / d gw = (d part_num - part [gw != 0]) / g
+    below = (m.mac_d <= ZERO) | (gw < aq - m.mac_d)
+    g = torch.where(gw == 0.0, 1.0, gw)
+    k_mac, af, k_mx = m.mac_ksat_h, m.geo_v_area_f, m.ksat_h
+    part = (k_mac * (gw - (aq - m.mac_d)) * af + k_mx * (
+        aq - m.mac_d + (gw - (aq - m.mac_d)) * (1.0 - af))) / g
+    dpn = k_mac * af + k_mx * (1.0 - af)
+    kh_gw = torch.where(below | (gw > aq), 0.0,
+                        torch.where(gw == 0.0, dpn, dpn - part) / g)
+    # deficit, theta, satn
+    def_raw = aq - gw
+    sat = def_raw <= 0.0
+    def_gw = -ph.d_max(def_raw, 0.0)
+    dd = torch.where(sat, 1.0, maximum(def_raw, 0.0))
+    th_us = torch.where(sat, 0.0, ts / dd)
+    th_gw = torch.where(sat, 0.0, -(us / dd) / dd * def_gw * ts)
+    theta = torch.where(sat, ts, us / dd * ts)
+    satn = torch.where(sat, 1.0, (theta - tr) / (ts - tr))
+    sn_us, sn_gw = th_us / (ts - tr), th_gw / (ts - tr)
+    # the clip and van Genuchten branch, then the hi/lo overrides
+    edge = (satn > 0.99) | (satn <= ZERO)
+    fclip = (ph.d_min(maximum(satn, 1e-12), 1.0 - 1e-12)
+             * ph.d_max(satn, 1e-12))
+    kr_s = ph.sat_k_fun_lin(ph.clip(satn, 1e-12, 1.0 - 1e-12), m.beta) * fclip
+    out = dict(kh_gw=kh_gw, def_gw=def_gw,
+               sn_us=sn_us, sn_gw=sn_gw, kr_us=kr_s * sn_us,
+               kr_gw=kr_s * sn_gw, th_us=th_us, th_gw=th_gw)
+    for k in ("sn_us", "sn_gw", "kr_us", "kr_gw", "th_us", "th_gw"):
+        out[k] = torch.where(edge, 0.0, out[k])
+    if m.num_lake > 0:
+        is_lake = m.i_lake > 0
+        out = {k: torch.where(is_lake, 0.0, v) for k, v in out.items()}
+    return out
+
+
+def _vertical_lin(m, fs, sf, us, gw, cu, ibeta, c):
+    """Tangent factors of the cell's vertical fluxes: for each of q_infil,
+    q_exfil, q_rech, es, eu, eg, tu, tg a dict of d/d sf, d/d us, d/d gw
+    (lake cells 0).  *c* are ``_cell_update_lin``'s factors."""
+    zero = torch.zeros_like(sf)
+    ts, tr = m.theta_s, m.theta_r
+    va, vb, pj = m.veg_frac, 1.0 - m.veg_frac, 1.0 - m.imp_af
+
+    # et_flux: ibeta through the clipped soil-moisture stress
+    fc = ts * 0.75
+    bs_raw = (cu.satn * (ts - tr) - tr) / (fc - tr)
+    bs_f = (ph.d_min(maximum(bs_raw, 0.0), 1.0) * ph.d_max(bs_raw, 0.0)
+            * (ts - tr) / (fc - tr))
+    ib_f = (0.5 * torch.sin(3.1415926 * ph.clip(bs_raw, 0.0, 1.0))
+            * 3.1415926 * bs_f)
+    ib_us, ib_gw = ib_f * c["sn_us"], ib_f * c["sn_gw"]
+    pe = fs.pot_evap
+    a_sf = maximum(sf, 0.0)
+    es_sf = ph.d_min(a_sf, pe) * ph.d_max(sf, 0.0) * vb
+    es_v = torch.minimum(a_sf, pe) * vb
+    rem = pe - es_v
+    some_left = es_v < pe
+    gw_high = gw > m.wetland_level
+    a_gw, a_us = maximum(gw, 0.0), maximum(us, 0.0)
+    m_gw, m_us = ph.d_max(gw, 0.0), ph.d_max(us, 0.0)
+    f = pj * vb
+    on = some_left & gw_high
+    eg = {"sf": torch.where(on, ph.d_min(rem, a_gw) * -es_sf * f, 0.0),
+          "us": zero,
+          "gw": torch.where(on, ph.d_min(a_gw, rem) * m_gw * f, 0.0)}
+    on = some_left & ~gw_high
+    b = ibeta * rem
+    w_a, w_b = ph.d_min(a_us, b), ph.d_min(b, a_us)
+    eu = {"sf": torch.where(on, w_b * ibeta * -es_sf * f, 0.0),
+          "us": torch.where(on, (w_a * m_us + w_b * ib_us * rem) * f, 0.0),
+          "gw": torch.where(on, w_b * ib_gw * rem * f, 0.0)}
+    live = (fs.lai > ZERO) & ~(fs.e_ic >= fs.pot_tran)
+    deep = gw > m.rootreach_level
+    room = fs.pot_tran - fs.e_ic
+    f = pj * va
+    on = live & deep
+    tg = {"sf": zero, "us": zero,
+          "gw": torch.where(on, ph.d_min(a_gw, room) * m_gw * f, 0.0)}
+    on = live & ~deep
+    b = ibeta * room
+    w_a, w_b = ph.d_min(a_us, b), ph.d_min(b, a_us)
+    tu = {"sf": zero,
+          "us": torch.where(on, (w_a * m_us + w_b * ib_us * room) * f, 0.0),
+          "gw": torch.where(on, w_b * ib_gw * room * f, 0.0)}
+    es = {"sf": es_sf, "us": zero, "gw": zero}
+
+    # flux_infiltration (no tangent across the gw + us > aq_depth switch)
+    aq, inf_d, ksv_i = m.aq_depth, m.inf_d, m.inf_ksat_v
+    av = sf + fs.net_prcp
+    gas = (gw + us > aq) | (cu.deficit < us)
+    qex_f = torch.where(gas, ph.d_abs(gw + us - aq) / aq * cu.kmax, 0.0)
+    grad = 1.0 + av / inf_d
+    heavy, medium = av > cu.kmax, av > ksv_i
+    a1, a2 = ksv_i * (1.0 - m.h_area_f), m.h_area_f * m.mac_ksat_v
+    kr_a1 = cu.sat_kr * ksv_i * (1.0 - m.h_area_f)
+    effk = torch.where(heavy, a1 + a2 * cu.satn,
+                       torch.where(medium, kr_a1 + a2 * cu.satn, kr_a1))
+
+    def effk_lin(x):
+        sn, kr = c[f"sn_{x}"], c[f"kr_{x}"]
+        return torch.where(heavy, a2 * sn,
+                           torch.where(medium, kr * a1 + a2 * sn, kr * a1))
+
+    x = grad * effk
+    top = maximum(x, 0.0)
+    w_av, w_x = ph.d_min(av, top), ph.d_min(top, av) * ph.d_max(x, 0.0)
+    on = (av > 0.0) & (cu.deficit > inf_d) & ~gas
+    fu = fs.fu_surf
+    qi = {"sf": torch.where(on, w_av + w_x * effk / inf_d, 0.0) * fu,
+          "us": torch.where(on, w_x * grad * effk_lin("us"), 0.0) * fu,
+          "gw": torch.where(on, w_x * grad * effk_lin("gw"), 0.0) * fu}
+    qx = {"sf": zero, "us": qex_f * fu, "gw": qex_f * fu}
+
+    # flux_recharge: the harmonic mean through d num and d denom
+    ksv, tfc = m.ksat_v, m.theta_fc
+    z = (cu.theta - tr) / (tfc - tr)
+    cond = (cu.theta > tr) & (us > EPSILON)
+    grad_r = torch.where(cond, maximum(z, 0.0), 0.0)
+    ku = ksv_i * cu.sat_kr
+    dsum = cu.deficit + gw
+    denom = cu.deficit * ksv + gw * ku
+    flat = denom == 0.0
+    dsafe = torch.where(flat, 1.0, denom)
+    ke0 = ku * ksv * dsum / dsafe
+    ke = torch.where(flat, 0.0, ke0)
+    off = ((ksv_i <= 0.0) | (ksv <= 0.0)
+           | ((gw > aq - inf_d) & (us < cu.deficit)))
+    qr = {"sf": zero}
+    for x, dgw in (("us", 0.0), ("gw", 1.0)):
+        ddef = c["def_gw"] if x == "gw" else zero
+        dku = ksv_i * c[f"kr_{x}"]
+        dden = ddef * ksv + dgw * ku + gw * dku
+        dnum = dku * ksv * dsum + ku * ksv * (ddef + dgw)
+        dke = torch.where(flat, 0.0, (dnum - ke0 * dden) / dsafe)
+        dgrad = torch.where(cond, ph.d_max(z, 0.0) * c[f"th_{x}"]
+                            / (tfc - tr), 0.0)
+        qr[x] = torch.where(off, 0.0, dgrad * ke + grad_r * dke) * fs.fu_sub
+
+    out = dict(qi=qi, qx=qx, qr=qr, es=es, eu=eu, eg=eg, tu=tu, tg=tg)
+    if m.num_lake > 0:
+        is_lake = m.i_lake > 0
+        out = {k: {x: torch.where(is_lake, 0.0, v) for x, v in d.items()}
+               for k, d in out.items()}
+    return out
+
+
+def _lake_toparea_lin(m, lake_stg):
+    """d ``_lake_toparea`` / d lake_stg, the scan's tangent."""
+    yq = lake_stg + m.lake_zmin
+    yi, ai = m.lake_bathy_y, m.lake_bathy_a
+    ta = ai[:, 0]
+    dta = torch.zeros_like(ta)
+    done = yq <= yi[:, 0]
+    for i in range(1, yi.shape[1]):
+        below = yq < yi[:, i]
+        same = yi[:, i] == yq
+        den = torch.where(same, 1.0, yi[:, i] - yq)
+        dden = torch.where(same, 0.0, -1.0)
+        ratio = (ai[:, i] - ta) / den
+        dratio = (-dta - ratio * dden) / den
+        interp = ratio * (yq - yi[:, i - 1]) + ta
+        dinterp = dratio * (yq - yi[:, i - 1]) + ratio + dta
+        ta = torch.where(done, ta, torch.where(below, interp, ai[:, i]))
+        dta = torch.where(done, dta, torch.where(below, dinterp, 0.0))
+        done = done | below
+    return dta
+
+
+def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
+    """The factors of ``linearize`` and the J·v closure over them."""
+    ne, nr = m.num_ele, m.num_riv
+    nl = m.num_lake if m.num_lake > 0 else 0
+    sf, us, gw, rs, cu = s["sf"], s["us"], s["gw"], s["riv_stage"], s["cu"]
+    dtype = sf.dtype
+    keep_gw = (m.i_bc <= 0).to(dtype)  # a head BC fixes gw
+    keep_rs = (m.riv_bc <= 0).to(dtype)
+
+    # --- cells: the 3x3 local Jacobian of (dsf, dus, dgw) ---
+    c = _cell_update_lin(m, sf, us, gw)
+    v = _vertical_lin(m, fs, sf, us, gw, cu, s["ibeta"], c)
+    qi, qx, qr = v["qi"], v["qx"], v["qr"]
+    keep_cell = torch.ones_like(sf)
+    if nl > 0:
+        is_lake_cell = m.i_lake > 0
+        keep_cell = (~is_lake_cell).to(dtype)
+    inv_sy = keep_cell / m.sy
+    bc_sy = keep_gw * inv_sy
+    lj = {}
+    for x in ("sf", "us", "gw"):
+        lj["s" + x] = (-qi[x] + qx[x] - v["es"][x]) * keep_cell
+        lj["u" + x] = (qi[x] - qr[x] - v["eu"][x] - v["tu"][x]) * inv_sy
+        lj["g" + x] = (qr[x] - qx[x] - v["eg"][x] - v["tg"][x]) * bc_sy
+    a_surf = -keep_cell / m.area
+    a_sub = -bc_sy / m.area
+    kh_gw = c["kh_gw"]
+
+    # --- lake-bank edges, merged by mask (no fu_sub on their lake sums) ---
+    if nl > 0:
+        has_lake, lk, nb = m.has_lake, m.lk, m.nb
+        isf = maximum(sf, 0.0)[:, None]
+        lake_nb = s["lake_stg"][lk]
+        lake_nsf = maximum(lake_nb, 0.0)
+        c_y0, c_yj = ph.weir_flow_jtoi_local_lin(
+            lake_nsf + m.edge_lake_dzl, isf, lake_nsf, 0.6, m.edge, 0.01)
+        ls_sf = c_yj * ph.d_max(sf, 0.0)[:, None]
+        ls_lk = c_y0 * ph.d_max(lake_nb, 0.0)
+        gw_col = gw[:, None]
+        dh = (gw_col - lake_nb) + m.edge_lake_dzb
+        ym = ph.avg_y_gw(gw_col, lake_nb)
+        grad = dh / m.dist_nb
+        km = 0.5 * (cu.eff_kh[:, None] + cu.eff_kh[nb])
+        live = ~(((dh > 0.0) & (gw_col <= 0.02))
+                 | ((dh < 0.0) & (lake_nb <= 0.02)))
+        B = m.edge
+        half_k = torch.where(live, 0.5 * grad * ym * B, 0.0)
+        lb_gw = torch.where(live, (km / m.dist_nb * ym + km * grad * 0.5
+                                   * ph.d_max(gw, 0.0)[:, None]) * B, 0.0) \
+            + half_k * kh_gw[:, None]
+        lb_gwn = half_k * kh_gw[nb]
+        lb_lk = torch.where(live, (-km / m.dist_nb * ym + km * grad * 0.5
+                                   * ph.d_max(lake_nb, 0.0)) * B, 0.0)
+        lake_edge = has_lake & ~is_lake_cell[:, None]
+
+    # --- segments: d q_seg_surf, d q_seg_sub on the gathered tangents ---
+    se, sr = m.seg_ele, m.seg_riv
+    zero_e = torch.zeros_like(s["seg_isf"])
+    w_i, w_j = ph.weir_flow_jtoi_lin(
+        zero_e, s["seg_isf"], -m.riv_depth[sr], rs[sr], zero_e, m.seg_cwr,
+        m.seg_length, m.depression[se])
+    w_i = w_i * ph.d_max(s["seg_isf_raw"], 0.0)
+    # seg_isf = sf - q_infil + q_exfil at the segment's cell
+    b_sf = w_i * (1.0 - qi["sf"] + qx["sf"])[se]
+    b_us = w_i * (-qi["us"] + qx["us"])[se]
+    b_gw = w_i * (-qi["gw"] + qx["gw"])[se]
+    r_yr, r_ye, r_k = ph.flux_r2e_gw_lin(
+        rs[sr], m.aq_depth[se] - m.riv_depth[sr], gw[se], zero_e,
+        cu.eff_kh[se], m.riv_ksat_h[sr], m.seg_length, m.riv_bed_thick[sr])
+    fu_seg = fs.fu_sub[se]
+    sb_rs = r_yr * fu_seg
+    sb_gw = (r_ye + r_k * kh_gw[se]) * fu_seg
+
+    # --- reaches: geometry, Manning down the chain, outlets ---
+    bs, bw = m.riv_bank_slope, m.riv_bottom_width
+    topw_rs = ph.d_max(rs * bs * 2.0 + bw, 0.0) * (bs * 2.0)
+    csa_rs = ph.d_max(rs * (bw + rs * bs), 0.0) * (bw + 2.0 * rs * bs)
+    root = torch.sqrt(1.0 + bs**2)
+    per_rs = (ph.d_max(2.0 * ph.absolute(rs) * root + bw, 0.0)
+              * 2.0 * ph.d_abs(rs) * root)
+    r_csa, r_per, r_hyd = s["r_csa"], s["r_per"], s["r_hyd"]
+    small = r_per <= ZERO
+    psafe = torch.where(small, 1.0, r_per)
+    hyd_rs = torch.where(small, 0.0, (csa_rs - r_hyd * per_rs) / psafe)
+    rough = m.riv_avg_rough
+    has_down = m.riv_down >= 0
+    dn = torch.where(has_down, m.riv_down, 0)
+    ma, mr, ms = ph.manning_equation_lin(r_csa, rough, r_hyd, s["s_down"])
+    int_dn = -ms / m.riv_dist2down
+    int_self = ma * csa_rs + mr * hyd_rs - int_dn
+    za, zr, zs = ph.manning_equation_lin(r_csa, rough, r_hyd, s["s_out"])
+    zdg = za * csa_rs + zr * hyd_rs + zs * 2.0 / m.riv_length
+    sq = torch.sqrt(GRAV * maximum(rs, 1e-30))
+    crit = (csa_rs * sq + r_csa * (GRAV * ph.d_max(rs, 1e-30)) / (2.0 * sq)) \
+        * 60.0
+    to_lake = m.riv_to_lake >= 0
+    p_self = torch.where(to_lake, zdg, torch.where(
+        has_down, int_self,
+        torch.where(m.riv_outlet_code == -4, crit, zdg)))
+    p_dn = torch.where(~to_lake & has_down, int_dn, 0.0)
+    # d_area = maximum(d_area_raw, -r_csa), then the dA -> dy quadratic
+    da_raw, floor = s["d_area_raw"], -r_csa
+    f_da, f_w = ph.fun_da_to_dy_lin(s["d_area"], s["r_topw"], bs)
+    dr_area = keep_rs * f_da * ph.d_max(da_raw, floor) / m.riv_length
+    dr_rs = keep_rs * (f_w * topw_rs - f_da * ph.d_max(floor, da_raw) * csa_rs)
+
+    # --- lakes: evaporation clamp, bathymetry, the bucket's division ---
+    if nl > 0:
+        lake_stg = s["lake_stg"]
+        ev_raw, prcp = s["q_lake_evap_raw"], s["q_lake_prcp"]
+        y_cap = prcp + lake_stg
+        evap_lk = (ph.d_max(torch.minimum(ev_raw, y_cap), 0.0)
+                   * ph.d_min(y_cap, ev_raw))
+        area = s["lake_area"]
+        inflow = s["q_lake_rivin"] + s["q_lake_sub"] + s["q_lake_surf"]
+        inv_area = 1.0 / area
+        c_lk = -evap_lk - inflow / (area * area) * _lake_toparea_lin(m,
+                                                                    lake_stg)
+
+    apply = (edge_mod.edge_apply if _on_kernels(m, sf)
+             else edge_mod.edge_apply_plain)
+    et, gl, fu_sub = m.edge_tables, m.lists, fs.fu_sub
+
+    def jvp(vec):
+        tsf = vec[:ne]
+        tus = vec[ne:2 * ne]
+        tgw = vec[2 * ne:3 * ne] * keep_gw
+        trs = vec[3 * ne:3 * ne + nr] * keep_rs
+        tqs, tqb = apply(coeffs, tsf, tgw, kh_gw * tgw, et)
+        if nl > 0:
+            tlk = vec[3 * ne + nr:]
+            tl = tlk[lk]
+            tqs = torch.where(has_lake, ls_sf * tsf[:, None] + ls_lk * tl,
+                              tqs)
+            tqb = torch.where(has_lake, lb_gw * tgw[:, None]
+                              + lb_gwn * tgw[nb] + lb_lk * tl, tqb)
+        t_ss = (b_sf * tsf[se] + b_us * tus[se] + b_gw * tgw[se]
+                + w_j * trs[sr])
+        t_sb = sb_rs * trs[sr] + sb_gw * tgw[se]
+        t_surf = tqs.sum(dim=1) - gather_sum(t_ss, gl.seg_to_ele)
+        t_sub = fu_sub * tqb.sum(dim=1) - gather_sum(t_sb, gl.seg_to_ele)
+        tdsf = lj["ssf"] * tsf + lj["sus"] * tus + lj["sgw"] * tgw \
+            + a_surf * t_surf
+        tdus = lj["usf"] * tsf + lj["uus"] * tus + lj["ugw"] * tgw
+        tdgw = lj["gsf"] * tsf + lj["gus"] * tus + lj["ggw"] * tgw \
+            + a_sub * t_sub
+        t_down = p_self * trs + p_dn * trs[dn]
+        t_area = (gather_sum(t_down, gl.riv_to_down)
+                  - gather_sum(t_ss, gl.seg_to_riv)
+                  - gather_sum(t_sb, gl.seg_to_riv) - t_down)
+        tdriv = dr_area * t_area + dr_rs * trs
+        parts = [tdsf, tdus, tdgw, tdriv]
+        if nl > 0:
+            t_in = (gather_sum(t_down, gl.riv_to_lake)
+                    + gather_sum(torch.where(lake_edge, tqb, 0.0).reshape(-1),
+                                 gl.edge_to_lake)
+                    + gather_sum(torch.where(lake_edge, tqs, 0.0).reshape(-1),
+                                 gl.edge_to_lake))
+            parts.append(t_in * inv_area + c_lk * tlk)
+        return torch.cat(parts)
+
+    return jvp

@@ -1,12 +1,16 @@
 """Fused driver: one output interval of solver windows per call.
 
 The counterpart of ``shud_tpu/driver/fused.py``.  For each window
-(``run_interval``): TSR factor -> cell forcing/PET -> bucket update -> BC
-overlay -> adaptive implicit solve -> one diagnostics RHS, accumulated into
-interval means.  With the megakernel on (``FusedSimulation.create(mega=)``,
-``core/mega.py``) the solve linearizes once per Newton iteration (one RHS
-kernel call, one tangent kernel call per Krylov vector) and the
-diagnostics take one kernel call, all on the flat state.  JAX runs the
+(``run_interval``): TSR factor -> cell forcing/PET -> bucket update ->
+cryosphere (``cryosphere=1``) and BC overlays -> adaptive implicit solve
+-> one diagnostics RHS, accumulated into interval means.  The solve
+linearizes the RHS once per Newton iteration, as the JAX solver's
+``jax.linearize``: on the eager path through ``rhs.linearize`` (one
+coefficient call of the edge kernels, then one apply call per Krylov
+vector), with the megakernel on (``FusedSimulation.create(mega=)``,
+``core/mega.py``) through ``mega.linearize_mega`` (one RHS kernel call,
+one tangent kernel call per Krylov vector), where the diagnostics take one
+kernel call too.  JAX runs the
 windows as one ``lax.scan`` inside one jit; here they are a Python loop
 whose tensors stay on the device, and the host receives the interval
 means and the per-window river stages.
@@ -24,6 +28,7 @@ import torch
 from shud_tpu_torch.core import mega as mega_mod
 from shud_tpu_torch.core import physics as ph
 from shud_tpu_torch.core import solar as solar_mod
+from shud_tpu_torch.core.cryo import CryoState, cryo_init, cryo_step
 from shud_tpu_torch.core.device import TorchMesh, to_torch
 from shud_tpu_torch.core.landsurface import (
     BucketState,
@@ -32,7 +37,7 @@ from shud_tpu_torch.core.landsurface import (
     et_bucket_step,
 )
 from shud_tpu_torch.core.mesh import MeshData, build_mesh
-from shud_tpu_torch.core.rhs import rhs, rhs_full
+from shud_tpu_torch.core.rhs import linearize, rhs, rhs_full
 from shud_tpu_torch.core.state import ForcingSlice, split_y
 from shud_tpu_torch.driver.forcing import ForcingRuntime, build_forcing
 from shud_tpu_torch.driver.init import initial_buckets, initial_state
@@ -168,9 +173,12 @@ def run_interval(
     per_edge_out: bool = False,  # accumulate QeleSub/Surf per-edge means
     mega: "mega_mod.MegaTables | None" = None,  # the megakernel's tables
     mega_kernel: bool = True,  # False: the mega path on its plain versions
+    cryo: "CryoState | None" = None,  # on: the frozen-ground accumulators
+    cryo_bounds=(-1.0, -5.0, -3.0, -10.0),  # surf max/min, sub max/min
 ):
     """Advance *n_windows* solver windows; returns (bdf state, buckets,
-    mean_e, mean_r, mean_l, stages [W, Nr], qdowns [W, Nr])."""
+    cryosphere state, mean_e, mean_r, mean_l, stages [W, Nr],
+    qdowns [W, Nr])."""
     ne, nr, nl = dm.num_ele, dm.num_riv, dm.num_lake
     dtype = bdf_state.y.dtype
     dt = np_dtype(dtype)
@@ -207,6 +215,11 @@ def run_interval(
             et_mode=et_mode,
         )
         out = et_bucket_step(dm, cf, bk, win_minutes, cal.c_ismax)
+        if cryo is not None:
+            cryo, fu_surf, fu_sub = cryo_step(cryo, cf.temp, float(t),
+                                              *cryo_bounds)
+        else:
+            fu_surf = fu_sub = ones
         if bc_maps is None:
             ele_ybc, ele_qbc, ele_qss = zeros_e, zeros_e, zeros_e
             riv_ybc, riv_qbc = zeros_r, zeros_r
@@ -224,7 +237,7 @@ def run_interval(
         fs = ForcingSlice(
             net_prcp=out.net_prcp, prcp=cf.prcp, pot_evap=cf.pot_evap,
             pot_tran=cf.pot_tran, e_ic=out.e_ic, lai=cf.lai,
-            fu_surf=ones, fu_sub=ones,
+            fu_surf=fu_surf, fu_sub=fu_sub,
             ele_ybc=ele_ybc, ele_qbc=ele_qbc, ele_qss=ele_qss,
             riv_ybc=riv_ybc, riv_qbc=riv_qbc,
         )
@@ -253,7 +266,13 @@ def run_interval(
                 mesh, slc = params
                 return rhs(mesh, slc, tt, yy, close_boundary=close_boundary)
 
-            st = solve_to(f, st, tout, (dm, fs), cfg, qfn)
+            # one primal (with the edge coefficients) per Newton
+            # iteration, one edge_apply per Krylov vector
+            def lin(tt, yy, params):
+                mesh, slc = params
+                return linearize(mesh, slc, tt, yy, close_boundary)
+
+            st = solve_to(f, st, tout, (dm, fs), cfg, qfn, linearize=lin)
         y = st.y
         bk = out.state
 
@@ -308,7 +327,7 @@ def run_interval(
     mean_e = {k: v / n_windows for k, v in acc_e.items()}
     mean_r = {k: v / n_windows for k, v in acc_r.items()}
     mean_l = {k: v / n_windows for k, v in acc_l.items()}
-    return (st, bk, mean_e, mean_r, mean_l, torch.stack(stages),
+    return (st, bk, cryo, mean_e, mean_r, mean_l, torch.stack(stages),
             torch.stack(qdowns))
 
 
@@ -326,6 +345,7 @@ class FusedSimulation:
     last_mean_l: dict = dataclasses.field(default_factory=dict)
     mega: "mega_mod.MegaTables | None" = None  # on: the megakernel's tables
     mega_kernel: bool = True  # False: the mega path on its plain versions
+    cryo: "CryoState | None" = None  # on with cryosphere=1
 
     def y_dev(self) -> torch.Tensor:
         """The prognostic state as a flat device tensor."""
@@ -382,10 +402,6 @@ class FusedSimulation:
             inp.calib = calib
         for k, v in control_overrides.items():
             setattr(inp.control, k, v)
-        if inp.control.cryosphere:
-            raise NotImplementedError(
-                "the cryosphere (frozen-ground) module is not ported yet "
-                "(ROADMAP.md, queue: cryosphere)")
         from shud_tpu_torch.io.validate import check_input
 
         check_input(inp)
@@ -428,6 +444,11 @@ class FusedSimulation:
         fr.cal = CalibScalars(*[v.to(device=device, dtype=fd) for v in fr.cal])
         y0 = t(initial_state(inp, md))
         ic0, snow0 = initial_buckets(inp, md)
+        cryo = None
+        if cs.cryosphere:
+            gc = inp.calib
+            cryo = cryo_init(md.num_ele, int(gc.fzn_surfday),
+                             int(gc.fzn_subday), fd, device)
         # exact water-balance quadrature along the solver trajectory is
         # opt-in, mirroring the reference (SHUD_WB_DIAG=1, shud.cpp:70-75)
         if wb_exact is None:
@@ -440,6 +461,7 @@ class FusedSimulation:
             bdf=bdf_init(cs.start_time, y0, cfg, quad0=quad0),
             buckets=BucketState(ic_stg=t(ic0), snow=t(snow0)),
             t=cs.start_time, mega=mega_tables, mega_kernel=mega_kernel,
+            cryo=cryo,
         )
 
     def window_indices(self, t0: float, n_windows: int, win: float):
@@ -456,7 +478,8 @@ class FusedSimulation:
         win = cs.solver_step
         n_windows = int(round(interval_minutes / win))
         fi, li, mi = self.window_indices(self.t, n_windows, win)
-        st, bk, mean_e, mean_r, mean_l, stages, qdowns = run_interval(
+        gc = self.inp.calib
+        st, bk, cryo, mean_e, mean_r, mean_l, stages, qdowns = run_interval(
             self.dm, self.tables, self.bdf, self.buckets, self.fr.cal,
             self.t, fi, li, mi,
             self.fr.rad_factor_cap, self.fr.rad_cosz_min,
@@ -467,10 +490,13 @@ class FusedSimulation:
             bc_tables=self._bc_tables(self.t, n_windows, win),
             et_mode=int(self.fr.et_mode),
             per_edge_out=bool(cs.dt_Qe_subx > 0 or cs.dt_Qe_surfx > 0),
-            mega=self.mega, mega_kernel=self.mega_kernel,
+            mega=self.mega, mega_kernel=self.mega_kernel, cryo=self.cryo,
+            cryo_bounds=(gc.fzn_surfmax, gc.fzn_surfmin,
+                         gc.fzn_submax, gc.fzn_submin),
         )
         self.bdf = st
         self.buckets = bk
+        self.cryo = cryo
         self.t += interval_minutes
         self.last_mean_l = mean_l
         return mean_e, mean_r, stages, qdowns

@@ -51,7 +51,7 @@ class IntervalWriter:
                     raise ValueError(
                         "fused run path requires equal output intervals; "
                         f"{name} has {dt} != {self.interval} "
-                        "(the per-window driver is not ported yet)"
+                        "(use the per-window driver instead)"
                     )
                 mk = "lake" if riv == "lake" else ("riv" if riv else "ele")
                 sel = np.where(masks[mk])[0]
@@ -159,8 +159,6 @@ def run_project_fast(project: str, base: str = ".", end_day=None,
     Returns the ``FusedSimulation`` at the end of the run.  Runs on the
     card unless *device* says otherwise; ``mega`` as in
     ``FusedSimulation.create``."""
-    if os.environ.get("SHUD_DEBUG_TABLES", "0") not in ("0", ""):
-        raise NotImplementedError("SHUD_DEBUG_TABLES is not ported yet")
     if end_day is not None:
         overrides.setdefault("day_end", end_day)
     sim = FusedSimulation.create(project, base=base, float_dtype=float_dtype,
@@ -202,6 +200,10 @@ def run_project_fast(project: str, base: str = ".", end_day=None,
     write_calib(sim.inp.calib,
                 os.path.join(paths.outpath, f"{paths.project}.cfg.calib.bak"))
     paths.save_project_file()  # <prj>.SHUD provenance manifest
+    if os.environ.get("SHUD_DEBUG_TABLES", "0") not in ("0", ""):
+        from shud_tpu_torch.io.debugtables import write_debug_tables
+
+        write_debug_tables(md, sim.inp, paths.outpath)
 
     def _fetch(s, extra=None):
         """Everything an interval's bookkeeping needs, on the host."""

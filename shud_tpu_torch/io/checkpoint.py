@@ -2,7 +2,8 @@
 
 The counterpart of ``shud_tpu/io/checkpoint.py``, with the same ``.npz``
 layout: one array per state leaf, keyed by its path (``bdf/y``,
-``bdf/quad/et``, ``buckets/snow``, ...), plus ``__t__``.  A checkpoint
+``bdf/quad/et``, ``buckets/snow``, ``cryo/surf/ring``, ...), plus
+``__t__``.  A checkpoint
 written by either package loads into the other, and a resumed run
 continues the saved trajectory bit for bit (solver history, step size,
 order, counters and quadrature accumulators included).
@@ -13,11 +14,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from shud_tpu_torch.core.cryo import AccTempState, CryoState
 from shud_tpu_torch.core.landsurface import BucketState
 from shud_tpu_torch.core.mega import unblock_tpu_state
 from shud_tpu_torch.solver.bdf import BDFState, np_dtype
 
-_INT_FIELDS = ("order", "nfe", "nsteps", "nfails", "nnifails")
+_INT_FIELDS = ("order", "nfe", "nsteps", "nfails", "nnifails", "size",
+               "head", "n_day")
 
 
 def _leaves(sim) -> dict:
@@ -33,6 +36,10 @@ def _leaves(sim) -> dict:
             out[f"bdf/{name}"] = v
     for name, v in sim.buckets._asdict().items():
         out[f"buckets/{name}"] = v
+    if sim.cryo is not None:
+        for part, acc in sim.cryo._asdict().items():
+            for name, v in acc._asdict().items():
+                out[f"cryo/{part}/{name}"] = v
     return out
 
 
@@ -44,6 +51,8 @@ def save_checkpoint(path: str, sim) -> None:
             payload[key] = v.detach().cpu().numpy()
         elif key.rsplit("/", 1)[-1] in _INT_FIELDS:
             payload[key] = np.asarray(v, dtype=np.int32)
+        elif key.endswith("/time_start"):
+            payload[key] = np.asarray(v, dtype=np_dtype(sim.bdf.y.dtype))
         else:
             payload[key] = np.asarray(v)
     with open(path, "wb") as f:
@@ -79,6 +88,8 @@ def load_checkpoint(path: str, sim) -> None:
                                              device=leaf.device)
         elif isinstance(leaf, int):
             new[key] = int(v)
+        elif key.endswith("/time_start"):
+            new[key] = float(v)
         else:
             new[key] = dt(v)
     bdf = {name: new.get(f"bdf/{name}") for name in BDFState._fields}
@@ -87,4 +98,9 @@ def load_checkpoint(path: str, sim) -> None:
     sim.bdf = BDFState(**bdf)
     sim.buckets = BucketState(
         **{name: new[f"buckets/{name}"] for name in BucketState._fields})
+    if sim.cryo is not None:
+        sim.cryo = CryoState(**{
+            part: AccTempState(**{name: new[f"cryo/{part}/{name}"]
+                                  for name in AccTempState._fields})
+            for part in CryoState._fields})
     sim.t = float(data["__t__"])

@@ -135,7 +135,10 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
                                   "mega_auto_cpu", "cryosphere"))
 def test_unported_options_refused(case):
     """Options that do not apply are refused, not silently dropped; on the
-    CPU the megakernel path is off unless asked for."""
+    CPU the megakernel path is off unless asked for.  The cryosphere,
+    refused until it was ported, now builds its accumulators in the fused
+    driver and is refused by the per-window driver, which has none (as in
+    the JAX package)."""
     inp = make_project("torch", "plain", 4, 2, 1.0)
     if case == "mega_f64":
         with pytest.raises(ValueError, match="float32"):
@@ -150,9 +153,15 @@ def test_unported_options_refused(case):
                           device="cpu")
         assert sim.mega is None
     else:
+        from shud_tpu_torch.driver.simulate import Simulation
+
         inp.control.cryosphere = 1
-        with pytest.raises(NotImplementedError, match="cryosphere"):
-            TSim.create("synthetic", inp=inp, device="cpu")
+        sim = TSim.create("synthetic", inp=inp, device="cpu")
+        ne = sim.md.num_ele
+        assert tuple(sim.cryo.surf.ring.shape) == (7, ne)
+        assert tuple(sim.cryo.sub.ring.shape) == (28, ne)
+        with pytest.raises(ValueError, match="cryosphere"):
+            Simulation.create("synthetic", inp=inp, device="cpu")
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

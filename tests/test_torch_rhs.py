@@ -125,3 +125,71 @@ def test_forcing_chain_matches_f64(et_mode):
                         net_prcp=bo.net_prcp, e_ic=bo.e_ic, sn_frac=bo.sn_frac)
     for key, a in out["jax"].items():
         assert scaled_err(a, out["torch"][key].numpy()) <= 1e-12, key
+
+
+LIN_VARIANTS = ("plain", "open", "lake", "bc", "branched", "ties")
+
+
+def _lin_case(variant, seed=8):
+    """(jax mesh, torch mesh, close_boundary, forcing dict, state, tangent)
+    for a linearize variant: non-unit frozen fractions everywhere, BC flags
+    and values on "bc" (tests/torch_variants.with_bc), and on "ties" the
+    lake mesh in the state of ``mega_inputs``: dry cells, empty
+    unsaturated layers, water tables at the surface, empty reaches."""
+    from torch_variants import mega_inputs, with_bc
+
+    base = {"bc": "plain", "ties": "lake"}.get(variant, variant)
+    md_j, md_t, cb = meshes(base)
+    if variant == "bc":
+        md_j, md_t = with_bc(md_j), with_bc(md_t)
+    fs, y = random_inputs(md_j, seed=seed)
+    if variant == "ties":
+        y = mega_inputs(md_j, seed)[1].astype(np.float64)
+    rng = np.random.default_rng(seed + 1)
+    ne, nr = md_j.num_ele, md_j.num_riv
+    fs["fu_surf"] = rng.uniform(0.3, 1.0, ne)
+    fs["fu_sub"] = rng.uniform(0.3, 1.0, ne)
+    if variant == "bc":
+        fs.update(ele_ybc=rng.uniform(0.5, 3.0, ne),
+                  ele_qbc=rng.normal(0.0, 1e-3, ne),
+                  ele_qss=rng.normal(0.0, 1e-3, ne),
+                  riv_ybc=rng.uniform(0.05, 1.0, nr),
+                  riv_qbc=rng.uniform(0.0, 1e-2, nr))
+    v = rng.standard_normal(y.shape[0])
+    return md_j, md_t, cb, fs, y, v
+
+
+@pytest.mark.parametrize("prec", sorted(DTYPES))
+@pytest.mark.parametrize("variant", LIN_VARIANTS)
+def test_linearize_matches_jvp(variant, prec):
+    """rhs.linearize, the solver's once-per-Newton-iteration hook: its dY
+    is rhs's bitwise, and its J·v equals torch.func.jvp of rhs (scaled
+    1e-12 in f64, 2e-6 in f32) and, in f64, jax.jvp of the JAX package's
+    rhs (scaled 1e-12), with no torch.func in the J·v."""
+    md_j, md_t, cb, fs, y, v = _lin_case(variant)
+    td = DTYPES[prec][1]
+    dm = to_torch(md_t, td, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a, dtype=td) for k, a in fs.items()})
+    yt, vt = torch.tensor(y, dtype=td), torch.tensor(v, dtype=td)
+    dy, jvp = TR.linearize(dm, fs_t, 0.0, yt, cb)
+    assert torch.equal(dy, TR.rhs(dm, fs_t, 0.0, yt, cb))
+    ref = torch.func.jvp(lambda yy: TR.rhs(dm, fs_t, 0.0, yy, cb), (yt,),
+                         (vt,))[1]
+    got = jvp(vt)
+    assert got.dtype == td and bool(torch.isfinite(got).all())
+    assert scaled_err(ref.numpy(), got.numpy()) <= (
+        1e-12 if prec == "f64" else 2e-6)
+    if prec == "f64":
+        dm_j = to_device(md_j, jnp.float64)
+        fs_j = JFS(**{k: jnp.asarray(a) for k, a in fs.items()})
+        _, tj = jax.jvp(lambda yy: JR.rhs(dm_j, fs_j, 0.0, yy, cb),
+                        (jnp.asarray(y),), (jnp.asarray(v),))
+        assert scaled_err(tj, got.numpy()) <= 1e-12
+
+
+def test_linearize_refuses_exact_parity():
+    md_j, md_t, cb, fs, y, _ = _lin_case("plain")
+    dm = to_torch(md_t, torch.float64, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a) for k, a in fs.items()})
+    with pytest.raises(ValueError, match="exact_parity"):
+        TR.linearize(dm, fs_t, 0.0, torch.tensor(y), cb, exact_parity=True)

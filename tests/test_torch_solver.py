@@ -158,3 +158,61 @@ def test_synthetic_window_matches_jax(max_order):
     assert st_t.nfails == int(st_j.nfails)
     assert float(st_t.t) == float(st_j.t) == 10.0
     assert np.abs(st_t.y.numpy() - np.asarray(st_j.y)).max() <= 1e-10
+
+
+@pytest.mark.parametrize("variant", ("plain", "open", "lake", "bc",
+                                     "branched"))
+def test_edge_linearize_hook_matches_func_jvp_route(variant, monkeypatch):
+    """One f64 storm window solved with rhs.linearize as the hook and with
+    the default route (torch.func.jvp of rhs for every Krylov vector):
+    the same steps and NFE, states within 1e-9, and the edge coefficients
+    computed once per Newton iteration (a counter on edge_coeff_plain, the
+    coefficient kernel's plain version on the CPU, equals
+    bdf.newton_iters)."""
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as TR
+    from shud_tpu_torch.core.device import to_torch
+    from shud_tpu_torch.core.state import ForcingSlice as TFS
+    from shud_tpu_torch.solver import bdf
+    from torch_variants import with_bc
+
+    md_j, md, cb = meshes("plain" if variant == "bc" else variant, 6, 4)
+    if variant == "bc":
+        md = with_bc(md)
+    fs, y = random_inputs(md_j, seed=5)
+    rng = np.random.default_rng(6)
+    fs["net_prcp"] = fs["net_prcp"] * 10.0  # a storm: several steps
+    fs["fu_sub"] = rng.uniform(0.3, 1.0, md.num_ele)
+    if variant == "bc":
+        fs["ele_ybc"] = rng.uniform(0.5, 3.0, md.num_ele)
+        fs["riv_ybc"] = rng.uniform(0.05, 1.0, md.num_riv)
+    dm = to_torch(md, torch.float64, "cpu")
+    fs_t = TFS(**{k: torch.tensor(v) for k, v in fs.items()})
+    cfg = SolverConfig(rtol=1e-4, atol=1e-4, h_max=10.0, h_init=1e-2)
+    calls = []
+    plain = E.edge_coeff_plain
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(E, "edge_coeff_plain", counted)
+
+    def f(t, yy, p):
+        return TR.rhs(p[0], p[1], t, yy, cb)
+
+    def lin(t, yy, p):
+        return TR.linearize(p[0], p[1], t, yy, cb)
+
+    runs = {}
+    for name, kw in (("jvp", {}), ("hook", {"linearize": lin})):
+        calls.clear()
+        it0 = bdf.newton_iters
+        st = solve_to(f, bdf_init(0.0, torch.tensor(y), cfg), 10.0,
+                      (dm, fs_t), cfg, **kw)
+        runs[name] = (st, len(calls), bdf.newton_iters - it0)
+    (a, calls_a, it_a), (b, calls_b, it_b) = runs["jvp"], runs["hook"]
+    assert (a.nsteps, a.nfe, a.nfails) == (b.nsteps, b.nfe, b.nfails)
+    assert b.nsteps > 3 and float(b.t) == 10.0
+    assert np.abs(a.y.numpy() - b.y.numpy()).max() <= 1e-9
+    assert calls_a == 0 and calls_b == it_b == it_a > 0
