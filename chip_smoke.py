@@ -4,11 +4,12 @@
     python3 chip_smoke.py                   # the main-path runs below
     python3 chip_smoke.py --sim-minutes 60  # shorter main-path runs
 
-Two paths, both run_project_fast in float32 on the card, each for one
-simulated day: the megakernel path at 32,768 cells (one kernel call per
-RHS, J·v and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072
-cells (eager RHS with the edge trio, csrc/edge_flux.cu, linearized once
-per Newton iteration by rhs.linearize).  Phases (any failed check raises
+Two paths, both run_project_fast in float32 on the card: the megakernel
+path at 32,768 cells for one simulated day (one kernel call per RHS, J·v
+and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072 cells
+over the storm's first six hours (eager RHS with the edge trio,
+csrc/edge_flux.cu, linearized once per Newton iteration by
+rhs.linearize).  Phases (any failed check raises
 and the script exits nonzero; nothing falls back to the CPU):
  1. the card (nvidia-smi name and power limit), exit if CUDA is absent;
  2. build both CUDA sources (one nvcc each, in parallel); registers and
@@ -56,10 +57,27 @@ and the script exits nonzero; nothing falls back to the CPU):
 10. the per-window driver (Simulation.advance_window) at 131k over 6
     storm windows beside FusedSimulation: within 2e-5 m, NFE within 2%;
 11. the command line in fresh processes: python -m shud_tpu_torch -h
-    exits 0, -g exits nonzero;
+    exits 0, -g --f32 exits nonzero (-g runs float64 only);
 12. one storm window of each path under torch.profiler: device busy time,
     idle share, launches per NFE, mega kernel launches per NFE (reported,
-    not checked).
+    not checked);
+13. the operator-split driver (run_project_split, -g, float64) over the 6
+    storm windows at 32k and on the lake mesh against the fused float64
+    eager driver: every block within 5e-3 m (the lake stage 5e-2 m); the
+    sub-solvers' steps and NFE, the wall per window; no kernel launched;
+14. the fixed-step float64 truth (fixed_bdf1 with rhs.linearize) over the
+    6 storm windows at 32k from a 12-hour spin-up, h = 0.5 min against
+    h = 0.25 min within 1e-4 m after every window; eager f64, eager f32
+    with the edge kernels and the mega path each within 5e-4 m of it on
+    gw heads and river stages after every window;
+15. NetCDF: the 32k project's forcing as a CMFD2 NetCDF-3 set (scipy),
+    the decoded table equal to the written one, the mega path forced
+    from it bitwise equal (else within 2e-5 m) to the CSV-forced run;
+    OUTPUT_MODE NETCDF refused naming h5py where h5py is absent, else
+    written and read back;
+16. the 131k mesh refined twice (2,097,152 cells): the edge-kernel path
+    beside the plain path over the 6 storm windows within 2e-5 m, with
+    phase 7's launch counts; set-up time, wall per window, peak memory.
 The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -111,10 +129,10 @@ DEVICE = "cuda"
 # (nx, ny) of make_synthetic_project, 2 nx ny cells: the edge-flux path,
 # the mega path (the JAX package's 32,768-cell ceiling), the lake mesh
 EDGE_MESH, MEGA_MESH, LAKE_MESH = (256, 256), (128, 128), (64, 64)
-# the edge path's main-path run, (start, minutes): the whole first day,
-# storm from minute 720 (cut to six hours while each Krylov vector re-ran
-# the primal through torch.func.jvp)
-EDGE_MAIN_SPAN = (0.0, 1440.0)
+# the edge path's main-path run, (start, minutes): the storm's first six
+# hours, minutes 720-1080 (six hours rather than the whole day, so that
+# the script with phases 13-16 stays near 300 s)
+EDGE_MAIN_SPAN = (720.0, 360.0)
 # storm windows of 10 minutes on each kernel path against its references
 STORM_WINDOWS = 6
 # the cryosphere phase: one window at this temperature [C] before the
@@ -122,6 +140,17 @@ STORM_WINDOWS = 6
 # 1 - (-1 + 4.5) / 4 = 0.125, fu_sub 1 - (-3 + 4.5) / 7 = 0.786 (the
 # calibration's default bounds)
 FROST_C = -4.5
+# the operator-split (-g) driver against the implicit one after the storm
+# windows [m]: tests/test_driver.py:309-316 (the lake stage integrates the
+# frozen-inflow Gauss-Seidel error, hence its own bound)
+SPLIT_BAR, SPLIT_BAR_LAKE = 5e-3, 5e-2
+# the fixed-step truth: step [min], sized so that the h and h/2 truths
+# agree within TRUTH_SELF [m] (tools/verify_trajectory.py's
+# self-convergence); each adaptive path within TRUTH_BAR [m] of it on gw
+# heads and river stages (tests/test_solver.py:104-105)
+TRUTH_H, TRUTH_SELF, TRUTH_BAR = 0.5, 1e-4, 5e-4
+# the refined mesh: the edge path's 131k mesh split 4:1 this many times
+REFINE_LEVELS = 2
 
 # written before each call of a cold-L2 time: above the H100's 50 MB L2
 FLUSH_BYTES = 64 << 20
@@ -935,11 +964,12 @@ def frozen_fractions(sims) -> dict:
 
 def phase_cli(torch) -> dict:
     """The command line in fresh processes on the card's host: -h exits 0,
-    a refused flag (-g) exits nonzero with its message."""
+    a flag refused under -g (--f32) exits nonzero with its message."""
     out = {}
     for name, argv, ok, text in (
             ("help", ["-h"], True, "--per-window"),
-            ("split", ["-g", "synthetic"], False, "driver/uncoupled.py")):
+            ("split_f32", ["-g", "--f32", "synthetic"], False,
+             "not supported with -g")):
         r = subprocess.run([sys.executable, "-m", "shud_tpu_torch", *argv],
                            capture_output=True, text=True, cwd=ROOT,
                            timeout=300)
@@ -994,6 +1024,387 @@ def phase_profile(inp, torch, **kw):
     for k, us, c in top:
         log(f"    {us / 1e3:9.3f} ms  {c:6d}x  {k[:70]}")
     return prof_summary
+
+
+def blocks_gap(a, b, ne: int, nr: int) -> dict:
+    """max |a - b| per state block (sf, us, gw, riv, lake) of two flat
+    states, on the host in float64."""
+    d = (a.double() - b.double()).abs().cpu()
+    cuts = {"sf": (0, ne), "us": (ne, 2 * ne), "gw": (2 * ne, 3 * ne),
+            "riv": (3 * ne, 3 * ne + nr), "lake": (3 * ne + nr, d.numel())}
+    return {k: float(d[lo:hi].max()) for k, (lo, hi) in cuts.items()
+            if hi > lo}
+
+
+def spin_up(inp, torch) -> dict:
+    """The state an f64 adaptive run (fused, eager) reaches at minute 720,
+    the storm's onset, from the initial condition at minute 0: phases 13
+    and 14 start from it, since the river's start-up transient from the
+    initial condition is fast enough to dominate both the splitting error
+    and a fixed-step truth's error."""
+    from shud_tpu_torch.driver.fused import FusedSimulation
+
+    p = copy.deepcopy(inp)
+    p.control.day_start = 0.0
+    sim = FusedSimulation.create("synthetic", inp=p, float_dtype=torch.float64,
+                                 mega=False, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.advance_interval(720.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"  spin-up ({sim.md.num_ele} cells): minutes 0-720, f64 eager, "
+        f"{sim.bdf.nfe} NFE in {wall:.2f} s")
+    return {"y": sim.bdf.y, "buckets": sim.buckets, "cfg": sim.cfg,
+            "nfe": sim.bdf.nfe, "wall_s": wall}
+
+
+def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
+    """Phase 13: run_project_split (float64, the card) resumed from a -g
+    checkpoint of the spun-up state at minute 720 over the 6 storm
+    windows, one output interval a window (the time log has each window's
+    wall), against the fused float64 eager driver from the same state:
+    every block within the splitting bound (lake: its own).  No kernel of
+    the six runs on this path (float64); the counts are set to 0 just
+    before and read just after."""
+    import numpy as np
+
+    from shud_tpu_torch.driver.uncoupled import (
+        _SplitCheckpointShim, init_uncoupled, run_project_split)
+    from shud_tpu_torch.io.checkpoint import save_checkpoint
+
+    p = copy.deepcopy(inp)
+    p.control.day_start = 0.5
+    for name in vars(p.control):
+        if name.startswith("dt_"):
+            setattr(p.control, name, 10)
+    p.control.dt_Qe_subx = p.control.dt_Qe_surfx = 0
+    end = 720.0 + 10.0 * STORM_WINDOWS
+    ne, nr = p.tri.shape[0], p.riv.shape[0]
+    nl = spun["y"].numel() - 3 * ne - nr
+    for k in kernels:
+        k.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="shud_split_") as out:
+        ckpt = os.path.join(out, "spun.ckpt.npz")
+        save_checkpoint(ckpt, _SplitCheckpointShim(
+            init_uncoupled(spun["y"], ne, nr, 720.0, spun["cfg"], nl=nl),
+            spun["buckets"], 720.0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = run_project_split("synthetic", inp=p, end_day=end / 1440.0,
+                               outpath=out, verbose=False, device=DEVICE,
+                               resume=ckpt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log_rows = np.loadtxt(os.path.join(out, "synthetic.time.csv"),
+                              skiprows=1, ndmin=2)
+        n_files = len(os.listdir(out))
+    counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
+    check(not any(counts.values()), f"{what}: a kernel ran on -g: {counts}")
+    parts = {k: getattr(st, k) for k in ("surf", "unsat", "gw", "riv", "lake")
+             if getattr(st, k) is not None}
+    check(("lake" in parts) == bool(nl), f"{what}: lake sub-solve")
+    for k, s in parts.items():
+        check(float(s.t) == end and s.y.dtype == torch.float64
+              and bool(torch.isfinite(s.y).all()), f"{what}: {k} state")
+    per_window = np.diff(log_rows[:, 4], prepend=0.0)
+    solvers = {k: {"nsteps": s.nsteps, "nfe": s.nfe} for k, s in parts.items()}
+    log(f"  {what}: -g over {STORM_WINDOWS} storm windows in {wall:.2f} s "
+        f"(wall per window from the time log: "
+        + ", ".join(f"{w:.2f}" for w in per_window) + " s); sub-solvers "
+        + ", ".join(f"{k} {v['nsteps']} steps {v['nfe']} NFE"
+                    for k, v in solvers.items()) + f"; {n_files} files")
+    check(len(log_rows) == STORM_WINDOWS, f"{what}: {len(log_rows)} intervals")
+    ref = restart_at(storm_sim(inp, torch, float_dtype=torch.float64,
+                               mega=False), 720.0, spun["y"],
+                     spun["buckets"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STORM_WINDOWS):
+        ref.advance_interval(10.0)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    y_split = torch.cat([s.y for s in parts.values()])
+    gaps = blocks_gap(y_split, ref.bdf.y, ne, nr)
+    log(f"  {what}: -g vs the fused f64 eager driver ({ref.bdf.nfe} NFE, "
+        f"{ref_wall:.2f} s): max |dy| " + ", ".join(
+            f"{k} {v:.3e} m" for k, v in gaps.items()))
+    for k, v in gaps.items():
+        bar = SPLIT_BAR_LAKE if k == "lake" else SPLIT_BAR
+        check(v < bar, f"{what}: -g {k} parts from the implicit driver by "
+              f"{v:.3e} m (bar {bar:g})")
+    return {"wall_s": wall, "window_wall_s": per_window.tolist(),
+            "solvers": solvers, "vs_implicit_m": gaps,
+            "implicit_nfe": ref.bdf.nfe, "implicit_wall_s": ref_wall,
+            "launches": counts}
+
+
+def restart_at(sim, t: float, y, buckets):
+    """*sim* (either driver) restarted at minute *t* from the state *y* and
+    *buckets*, cast to its precision: the solver history begins anew, as
+    at the start of a run."""
+    from shud_tpu_torch.core.landsurface import BucketState
+    from shud_tpu_torch.solver.bdf import bdf_init
+
+    dt = sim.bdf.y.dtype
+    sim.bdf = bdf_init(t, y.to(dt), sim.cfg, quad0=sim.bdf.quad)
+    sim.buckets = BucketState(*[b.to(dt) for b in buckets])
+    sim.t = t
+    return sim
+
+
+def phase_truth(inp, torch, edge, mega, bdf, spun: dict) -> dict:
+    """Phase 14: the fixed-step f64 truth (fixed_bdf1, rhs.linearize as its
+    hook) over the 6 storm windows at 32k, from the spun-up state at
+    minute 720 (``spin_up``: from the initial condition, the river's
+    start-up transient would need a far smaller step).
+    The truth at TRUTH_H and at half of it within TRUTH_SELF of each other
+    after every window (self-convergence); then each adaptive path from
+    the same state, held to TRUTH_BAR on gw heads and river stages after
+    every window: eager f64, eager f32 with the edge kernels, the mega
+    path with its kernels (launch counts set to 0 before each path and
+    read after it)."""
+    from shud_tpu_torch.core import rhs as R
+    from shud_tpu_torch.solver.fixed import fixed_bdf1
+
+    y0, bk0 = spun["y"], spun["buckets"]
+    ne, nr = inp.tri.shape[0], inp.riv.shape[0]
+
+    def f(t, y, p):
+        return R.rhs(p[0], p[1], t, y, True)
+
+    def lin(t, y, p):
+        return R.linearize(p[0], p[1], t, y, True)
+
+    truths, truth_s = {}, {}
+    for h in (TRUTH_H, TRUTH_H / 2):
+        sim = restart_at(storm_sim(inp, torch, float_dtype=torch.float64,
+                                   per_window=True), 720.0, y0, bk0)
+        y, t, ys = sim.bdf.y, sim.t, []
+        syncs = bdf.host_syncs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(STORM_WINDOWS):
+            fs, _ = sim.forcing_slice(t + 10.0)
+            t, y = fixed_bdf1(f, y, t, (sim.dm, fs), h, int(round(10.0 / h)),
+                              linearize=lin)
+            t = float(t)
+            ys.append(y)
+        torch.cuda.synchronize()
+        truth_s[h] = time.perf_counter() - t0
+        check(bdf.host_syncs == syncs, "the truth read the device")
+        truths[h] = ys
+        log(f"  truth h={h:g} min: {int(round(10.0 / h))} steps a window, "
+            f"{truth_s[h]:.2f} s")
+    self_conv = []
+    for w in range(STORM_WINDOWS):
+        g = blocks_gap(truths[TRUTH_H][w], truths[TRUTH_H / 2][w], ne, nr)
+        self_conv.append(g)
+        log(f"  window {w}: truth h vs h/2 " + ", ".join(
+            f"{k} {v:.3e}" for k, v in g.items()))
+        check(max(g.values()) < TRUTH_SELF,
+              f"truth h={TRUTH_H:g} not converged: {g} (window {w})")
+
+    paths = {"eager64": dict(float_dtype=torch.float64, mega=False),
+             "eager32": dict(mega=False), "mega32": {}}
+    out = {"h_min": TRUTH_H, "truth_s": truth_s,
+           "self_convergence_m": self_conv}
+    for name, kw in paths.items():
+        sim = restart_at(storm_sim(inp, torch, **kw), 720.0, y0, bk0)
+        for k in (edge, mega):
+            k.reset_launch_counts()
+        gaps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in range(STORM_WINDOWS):
+            sim.advance_interval(10.0)
+            g = blocks_gap(sim.bdf.y, truths[TRUTH_H][w], ne, nr)
+            gaps.append(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for k in (edge, mega)
+                  for n, c in k.launch_counts.items()}
+        log(f"  {name} vs truth ({sim.bdf.nfe} NFE, {wall:.2f} s, launches "
+            f"{counts}): " + "; ".join(
+                f"w{w} gw {g['gw']:.3e} riv {g['riv']:.3e} sf {g['sf']:.3e} "
+                f"us {g['us']:.3e}" for w, g in enumerate(gaps)))
+        for w, g in enumerate(gaps):
+            for blk in ("gw", "riv"):
+                check(g[blk] < TRUTH_BAR,
+                      f"{name}: {blk} {g[blk]:.3e} m from the truth "
+                      f"(window {w}, bar {TRUTH_BAR:g})")
+        if name == "eager32":
+            check(counts["edge_coeff"] > 0 and counts["edge_apply"] > 0
+                  and not counts["mega_rhs"], f"{name}: {counts}")
+        if name == "mega32":
+            check(sim.mega is not None and counts["mega_rhs"] > 0
+                  and counts["mega_jvp"] > 0 and not counts["edge_coeff"],
+                  f"{name}: {counts}")
+        out[name] = {"nfe": sim.bdf.nfe, "wall_s": wall, "vs_truth_m": gaps,
+                     "launches": counts}
+    return out
+
+
+def phase_netcdf(inp, torch, mega, kernels) -> dict:
+    """Phase 15: the 32k storm project's forcing written as a CMFD2
+    NetCDF-3 set (scipy), decoded by the project loader's reader and
+    checked equal to the table it was written from; the mega path over
+    the 6 storm windows forced from it beside the same forced by that
+    table as CSV (bitwise where the tables are equal, else 2e-5 m); then
+    OUTPUT_MODE NETCDF: refused naming h5py where h5py is absent, else
+    written and read back."""
+    import numpy as np
+
+    from torch_variants import write_cmfd_netcdf3
+
+    from shud_tpu_torch.driver.run_fast import run_project_fast
+    from shud_tpu_torch.io.project import _read_forc_netcdf
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="shud_nc_") as tmp:
+        nc = copy.deepcopy(inp)
+        t0 = time.perf_counter()
+        t_min, data = write_cmfd_netcdf3(nc, os.path.join(tmp, "input"),
+                                         nc.control.end_time)
+        got = _read_forc_netcdf(nc.paths, nc.control)
+        io_s = time.perf_counter() - t0
+    equal = (np.array_equal(got.t_min[0], t_min)
+             and np.array_equal(got.data[0], data))
+    log(f"  NetCDF-3 forcing: {len(t_min)} records written and decoded in "
+        f"{io_s:.2f} s, decoded table equal to the written one: {equal}")
+    check(equal and got.num_stations == 1, "decoded forcing differs")
+    nc.forc = got
+    csv = copy.deepcopy(inp)
+    csv.forc.t_min, csv.forc.data = [t_min], [data]
+    sims = {n: storm_sim(p, torch) for n, p in (("netcdf", nc), ("csv", csv))}
+    for k in kernels:
+        k.reset_launch_counts()
+    for w in range(STORM_WINDOWS):
+        for sim in sims.values():
+            sim.advance_interval(10.0)
+        a, b = sims["netcdf"].bdf.y, sims["csv"].bdf.y
+        same = bool(torch.equal(a, b))
+        gap = float((a.double() - b.double()).abs().max())
+        check(same or gap < BAR_DRIVER, f"NetCDF-forced run parts by {gap}")
+    counts = dict(mega.launch_counts)
+    log(f"  mega path over {STORM_WINDOWS} storm windows: NetCDF-forced vs "
+        f"CSV-forced bitwise equal {same} (max |dy| {gap:.3e} m), NFE "
+        f"{sims['netcdf'].bdf.nfe} / {sims['csv'].bdf.nfe}, launches "
+        f"{counts}")
+    check(sims["netcdf"].mega is not None and counts["mega_rhs"] > 0,
+          f"the NetCDF-forced run is off the mega path: {counts}")
+    out.update(records=len(t_min), decoded_equal=equal, bitwise=same,
+               max_dy_m=gap, nfe=sims["netcdf"].bdf.nfe, launches=counts)
+
+    try:
+        import h5py
+    except ImportError:
+        h5py = None
+    p = copy.deepcopy(inp)
+    p.control.output_mode = "NETCDF"
+    p.control.day_start = 0.5
+    p.control.dt_Qe_subx = p.control.dt_Qe_surfx = 0
+    for name in vars(p.control):
+        if name.startswith("dt_") and getattr(p.control, name):
+            setattr(p.control, name, 10)
+    with tempfile.TemporaryDirectory(prefix="shud_ncout_") as tmp:
+        outdir = os.path.join(tmp, "out")
+        if h5py is None:
+            try:
+                run_project_fast("synthetic", inp=p, end_day=730.0 / 1440,
+                                 float_dtype=torch.float32, outpath=outdir,
+                                 verbose=False, device=DEVICE)
+                refused = ""
+            except RuntimeError as e:
+                refused = str(e)
+            log(f"  OUTPUT_MODE NETCDF without h5py: refused: {refused!r}")
+            check("h5py" in refused and not os.path.exists(outdir),
+                  "OUTPUT_MODE NETCDF was not refused before the run")
+            out["netcdf_output"] = "refused: " + refused
+        else:
+            run_project_fast("synthetic", inp=p, end_day=730.0 / 1440,
+                             float_dtype=torch.float32, outpath=outdir,
+                             verbose=False, device=DEVICE)
+            with h5py.File(os.path.join(outdir, "synthetic.ele.nc")) as f:
+                shape = f["y_gw"].shape
+                ok = bool(np.isfinite(f["y_gw"][()]).all())
+            log(f"  OUTPUT_MODE NETCDF with h5py {h5py.__version__}: "
+                f"y_gw {shape}, finite {ok}")
+            check(ok and shape == (1, p.tri.shape[0]), "NetCDF output")
+            out["netcdf_output"] = f"written, y_gw {shape}"
+    return out
+
+
+def phase_refined(inp, torch, edge, bdf) -> dict:
+    """Phase 16: the 131k storm project refined REFINE_LEVELS times (4:1
+    each), the fused f32 driver with the edge kernels beside the same on
+    their plain versions over the 6 storm windows, window by window:
+    within 2e-5 m after every window, NFE within 2%; on the kernel path
+    edge_coeff once per Newton iteration, edge_apply krylov_m times and
+    edge_flux once a window (counts set to 0 just before its first window
+    and read after its last; its Newton iterations counted around its own
+    windows).  Set-up time, wall per window and peak device memory."""
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.utils.refine import refine_project
+
+    t0 = time.perf_counter()
+    fine = refine_project(copy.deepcopy(inp), REFINE_LEVELS)
+    refine_s = time.perf_counter() - t0
+    ne = fine.tri.shape[0]
+    check(ne == inp.tri.shape[0] * 4 ** REFINE_LEVELS, "wrong refined size")
+    out = {"num_ele": ne, "refine_s": refine_s}
+    sims = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, kw in (("kernel", {}), ("plain", {"edge_kernel": False})):
+        t0 = time.perf_counter()
+        sims[name] = storm_sim(fine, torch, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"setup_s": time.perf_counter() - t0, "window_wall_s": []}
+        out[name]["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+    md = sims["kernel"].md
+    log(f"  refined mesh: {md.num_ele} cells, {md.num_riv} reaches, "
+        f"{md.num_seg} segments; refined in {refine_s:.2f} s, set-up "
+        + ", ".join(f"{n} {out[n]['setup_s']:.2f} s" for n in sims)
+        + f"; device memory with both resident "
+        f"{out['plain']['resident_gib']:.2f} GiB")
+    edge.reset_launch_counts()
+    iters = 0
+    for w in range(STORM_WINDOWS):
+        for name, sim in sims.items():
+            it0 = bdf.newton_iters
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.advance_interval(10.0)
+            torch.cuda.synchronize()
+            out[name]["window_wall_s"].append(time.perf_counter() - t0)
+            if name == "kernel":
+                iters += bdf.newton_iters - it0
+        a, b = sims["kernel"].bdf.y, sims["plain"].bdf.y
+        gap = float((a.double() - b.double()).abs().max())
+        log(f"  refined, window {w}: kernel vs plain max |dy| {gap:.3e} m")
+        check(gap < BAR_DRIVER,
+              f"refined: kernel path parts by {gap:.3e} m (window {w})")
+    counts = dict(edge.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    k = sims["kernel"]
+    for name, sim in sims.items():
+        check(sim.mega is None, "the refined mesh took the mega path")
+        out[name]["nfe"] = sim.bdf.nfe
+        log(f"  {name}: wall per window " + ", ".join(
+            f"{x:.2f}" for x in out[name]["window_wall_s"])
+            + f" s, {sim.bdf.nfe} NFE")
+    log(f"  kernel path: {iters} Newton iterations, launches {counts}; peak "
+        f"device memory {peak:.2f} GiB")
+    check(counts["edge_coeff"] == iters
+          and counts["edge_apply"] == k.cfg.krylov_m * iters
+          and counts["edge_flux"] == STORM_WINDOWS,
+          f"refined: {counts} for {iters} Newton iterations")
+    check(abs(k.bdf.nfe - sims["plain"].bdf.nfe) <= 0.02 * k.bdf.nfe,
+          "refined: NFE of the plain path differs by more than 2%")
+    out.update(max_dy_m=gap, newton_iters=iters, launches=counts,
+               peak_gib=peak)
+    return out
 
 
 def main() -> int:
@@ -1152,6 +1563,19 @@ def main() -> int:
     log("phase 12: profile of one storm window on each path")
     summary["profile_edge_131k"] = phase_profile(inp, torch)
     summary["profile_mega_32k"] = phase_profile(inp32, torch)
+    log("phase 13: the operator-split driver (-g, f64) vs the implicit one")
+    spun32 = spin_up(inp32, torch)
+    summary["split_32k"] = phase_split(inp32, torch, (edge, mega), "32k",
+                                       spun32)
+    lake_inp = storm_project(*LAKE_MESH, 1.0, with_lake=True, localize=False)
+    summary["split_lake8k"] = phase_split(lake_inp, torch, (edge, mega),
+                                          "lake 8k", spin_up(lake_inp, torch))
+    log("phase 14: adaptive paths vs the fixed-step f64 truth (32k)")
+    summary["truth_32k"] = phase_truth(inp32, torch, edge, mega, bdf, spun32)
+    log("phase 15: NetCDF forcing and output (32k)")
+    summary["netcdf_32k"] = phase_netcdf(inp32, torch, mega, (edge, mega))
+    log(f"phase 16: the refined mesh ({REFINE_LEVELS} levels of the 131k)")
+    summary["refined"] = phase_refined(inp, torch, edge, bdf)
 
     summary["script_s"] = time.perf_counter() - t_script
     log(f"script: {summary['script_s']:.1f} s")

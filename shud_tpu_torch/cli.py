@@ -16,8 +16,6 @@ import argparse
 
 # flags of the JAX CLI the port refuses, with the reason
 REFUSED = {
-    "split": "-g/--split (operator-split mode) is not ported yet: "
-             "driver/uncoupled.py (ROADMAP.md, queue: the -g driver)",
     "shards": "--shards (domain decomposition over devices) is not ported "
               "yet (ROADMAP.md, queue: multi-GPU)",
     "distributed": "--distributed (multi-host runs) is not ported yet "
@@ -39,7 +37,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("-0", "--dummy", action="store_true", dest="dummy",
                    help="dummy run: IO pipeline only, no solving")
     p.add_argument("-g", "--split", action="store_true",
-                   help="operator-split mode (not ported: refused)")
+                   help="operator-split mode (float64; the five "
+                        "sub-solvers of driver/uncoupled.py)")
     p.add_argument("-c", "--calib", default=None,
                    help="calibration file (.cfg.calib)")
     p.add_argument("-o", "--output", default=None, help="output folder")
@@ -144,8 +143,19 @@ def main(argv=None):
         calib = _apply_cmaes_dir(args.cmaes_dir, calib)
 
     per_window = args.per_window or args.dummy
-    if inp is not None and per_window:
+    if inp is not None and (per_window or args.split):
         p.error("-p is supported with the default (fused) driver only")
+    if args.split:
+        # flags the JAX package's -g route drops without a word
+        dropped = [flag for flag, on in (
+            ("--f32", args.f32), ("--mega/--no-mega", args.mega is not None),
+            ("--pallas/--no-pallas", args.pallas is not None),
+            ("--resume", args.resume), ("-0", args.dummy),
+            ("--per-window", args.per_window)) if on]
+        if dropped:
+            p.error(f"{', '.join(dropped)}: not supported with -g (the "
+                    "operator-split driver runs in float64 with its own "
+                    "sub-solvers, as the JAX package's does)")
     if per_window and (args.mega is not None or args.resume):
         p.error("--mega/--no-mega and --resume belong to the fused driver; "
                 "drop them with --per-window or -0")
@@ -164,7 +174,15 @@ def main(argv=None):
 
     try:
         with prof:
-            if per_window:
+            if args.split:
+                from shud_tpu_torch.driver.uncoupled import run_project_split
+
+                run_project_split(
+                    args.project, base=args.base, end_day=args.end_day,
+                    verbose=not args.quiet, outpath=args.output,
+                    calib=calib, device=device,
+                )
+            elif per_window:
                 from shud_tpu_torch.driver.run import run_project
 
                 run_project(

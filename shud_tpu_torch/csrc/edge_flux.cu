@@ -45,8 +45,17 @@ struct Tables {
   const float* rough;     // [Ne] cell roughness
 };
 
+// physics.cbrt: powf and one Newton step, 0 unless x > 0, rounded as the
+// plain versions round it (cbrtf rounds differently, and one ulp parted the
+// kernel and plain solves at the infiltration switch at 2.1M cells)
+__device__ __forceinline__ float cbrt_plain(float x) {
+  if (!(x > 0.f)) return 0.f;
+  const float t = powf(x, 1.f / 3.f);
+  return (2.f * t + x / (t * t)) * (1.f / 3.f);
+}
+
 __device__ __forceinline__ float pow23(float x) {
-  float t = cbrtf(fmaxf(x, kTiny));
+  float t = cbrt_plain(fmaxf(x, kTiny));
   return t * t;
 }
 
@@ -150,7 +159,7 @@ __global__ void edge_flux_kernel(const float* __restrict__ sf,
   } else if (d.boundary) {
     // kinematic free drainage (pallas_edge._flux_surface_bnd/_sub_bnd)
     float sb = isf / d.d2e * 0.5f;
-    float isf5 = cbrtf(isf * isf * isf * isf * isf);
+    float isf5 = cbrt_plain(isf * isf * isf * isf * isf);
     if (isf > d.dep && sb > 0.f)
       qs = sqrtf(fmaxf(sb, 0.f)) * isf5 * d.B / d.rcell;
     float grad_b = d.gwi / d.d2e * 0.5f;
@@ -193,7 +202,7 @@ __global__ void edge_coeff_kernel(
                   ? sgn_s / (2.f * r.sqrt_s * d.dist) * cross * r.p23 / d.ravg
                   : 0.f;
     float c_p = r.ymean > kTiny
-                    ? (2.f / 3.f) / cbrtf(fmaxf(r.ymean, kTiny)) : 0.f;
+                    ? (2.f / 3.f) / cbrt_plain(fmaxf(r.ymean, kTiny)) : 0.f;
     float m_ym = r.w < kMaxYSurf ? 1.f : (r.w == kMaxYSurf ? 0.5f : 0.f);
     float b = r.sqrt_s * (d.B * r.p23 + cross * c_p) / d.ravg * m_ym;
     float u_i = (r.dh > 0.f && isf > d.dep) ? 1.f : 0.f;
@@ -212,7 +221,7 @@ __global__ void edge_coeff_kernel(
     ki = kj = live * d.B * 0.5f * u.grad * u.ymean;
   } else if (d.boundary) {
     float sb = isf / d.d2e * 0.5f;
-    float isf5 = cbrtf(isf * isf * isf * isf * isf);
+    float isf5 = cbrt_plain(isf * isf * isf * isf * isf);
     float sqrt_sb = sqrtf(fmaxf(sb, 0.f));
     if (isf > d.dep && sb > 0.f) {
       qs = sqrt_sb * isf5 * d.B / d.rcell;

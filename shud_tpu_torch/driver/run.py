@@ -160,7 +160,8 @@ def run_project(
     ``Simulation`` at the end of the run."""
     if end_day is not None:
         overrides.setdefault("day_end", end_day)
-    sim = Simulation.create(project, base=base, device=device, **overrides)
+    sim = Simulation.create(project, base=base, device=device, dummy=dummy,
+                            **overrides)
     if outpath:
         sim.inp.paths.outpath = outpath
     cs = sim.inp.control

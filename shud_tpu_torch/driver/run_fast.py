@@ -25,14 +25,25 @@ from shud_tpu_torch.utils.errors import NanError
 
 
 class IntervalWriter:
-    """Binds fused-interval means to Print_Ctrl-format files."""
+    """Binds fused-interval means to Print_Ctrl-format files, mirrored into
+    CF/UGRID NetCDF-4 files (``.ele.nc``, ``.riv.nc``, ``.lak.nc``) under
+    ``OUTPUT_MODE NETCDF|BOTH`` (NETCDF alone turns the binary files
+    off)."""
 
     def __init__(self, sim: FusedSimulation):
         cs = sim.inp.control
         paths = sim.inp.paths
         md = sim.md
-        if cs.output_mode in ("NETCDF", "BOTH"):
-            raise NotImplementedError("NetCDF output is not ported yet")
+        netcdf = cs.output_mode in ("NETCDF", "BOTH")
+        if netcdf:
+            try:
+                import h5py  # noqa: F401
+            except ImportError as e:
+                # refused here, before any solve, not at the first write
+                raise RuntimeError(
+                    f"OUTPUT_MODE {cs.output_mode} writes NetCDF-4 through "
+                    "h5py, which is not installed; use OUTPUT_MODE LEGACY"
+                ) from e
         os.makedirs(paths.outpath, exist_ok=True)
         start = sim.inp.forc.start_yyyymmdd
         b, a = bool(cs.binary), bool(cs.ascii)
@@ -61,6 +72,32 @@ class IntervalWriter:
                 )
                 self.channels.append((pc, key, is_flux, riv))
 
+        self.nc = self.nc_riv = self.nc_lake = None
+        if netcdf:
+            from shud_tpu_torch.io.ncoutput import (
+                UgridSink, read_ncoutput_cfg)
+
+            nccfg = read_ncoutput_cfg(
+                os.path.join(paths.inpath, cs.ncoutput_cfg)
+                if cs.ncoutput_cfg and not os.path.isabs(cs.ncoutput_cfg)
+                else cs.ncoutput_cfg)
+            crs_wkt = nccfg.get("CRS_WKT_TEXT", "")
+            self.nc = UgridSink(
+                os.path.join(paths.outpath, f"{paths.project}.ele.nc"),
+                md, "ele", sim.inp.nodes[:, 1:4], sim.inp.tri[:, 1:4],
+                start, crs_wkt=crs_wkt,
+            )
+            self.nc_riv = UgridSink(
+                os.path.join(paths.outpath, f"{paths.project}.riv.nc"),
+                md, "riv", start_yyyymmdd=start, crs_wkt=crs_wkt,
+            )
+            if md.num_lake > 0:
+                self.nc_lake = UgridSink(
+                    os.path.join(paths.outpath, f"{paths.project}.lak.nc"),
+                    md, "lake", start_yyyymmdd=start, crs_wkt=crs_wkt,
+                )
+            if cs.output_mode == "NETCDF":
+                b = False  # the binary writers off in pure-NETCDF mode
         ne, nr = md.num_ele, md.num_riv
         ch("eleyic", cs.dt_ye_ic, "y_ic", False, ne)
         ch("eleysnow", cs.dt_ye_snow, "y_snow", False, ne)
@@ -113,8 +150,19 @@ class IntervalWriter:
                riv="lake")
             ch("lakqsurf", cs.dt_lake, "q_lake_surf", True, nl, riv="lake")
             ch("lakqsub", cs.dt_lake, "q_lake_sub", True, nl, riv="lake")
+        if self.nc is not None:
+            for _pc, key, _fx, riv in self.channels:
+                sink = self._sink(riv)
+                if sink is not None and key not in sink.vars:
+                    sink.add_channel(key)
         if self.interval is None:
             self.interval = 1440
+
+    def _sink(self, riv):
+        """The NetCDF sink of a channel's entity kind."""
+        if riv == "lake":
+            return self.nc_lake
+        return self.nc_riv if riv else self.nc
 
     def write(self, t_end: float, mean_e: dict, mean_r: dict,
               mean_l: dict | None = None):
@@ -135,10 +183,17 @@ class IntervalWriter:
                 pc.fa.write(
                     f"{t_q:.1f}\t" + "\t".join(f"{v:e}" for v in out) + "\t\n"
                 )
+            if self.nc is not None:
+                sink = self._sink(riv)
+                if sink is not None:
+                    sink.write(key, t_q, np.asarray(vals) * pc.tau)
 
     def close(self):
         for pc, *_ in self.channels:
             pc.close()
+        for sink in (self.nc, self.nc_riv, self.nc_lake):
+            if sink is not None:
+                sink.close()
 
 
 def _to_host(tree):

@@ -36,9 +36,8 @@ from shud_tpu_torch.solver.bdf import (
     BDFState, SolverConfig, bdf_init, solve_to)
 
 
-def window_step(
+def window_forcing(
     dm: TorchMesh,
-    bdf_state: BDFState,
     buckets: BucketState,
     station_vals,  # [S, 5]
     station_z,
@@ -47,16 +46,15 @@ def window_step(
     tsr_sx, tsr_sy, tsr_sz, tsr_wdt, tsr_den,
     bc_ele_ybc, bc_ele_qbc, bc_ele_qss, bc_riv_ybc, bc_riv_qbc,
     cal: CalibScalars,
-    t, tout,
+    dt,
     rad_cap, rad_cosz_min,
-    cfg: SolverConfig,
-    close_boundary: bool = True,
     terrain_radiation: bool = True,
     swnet_mode: bool = False,
     et_mode: int = 0,
 ):
-    """One forcing window: forcing -> buckets -> implicit solve to tout.
-    Returns (bdf state, buckets, forcing slice, cell forcing)."""
+    """One window's forcing: TSR factor, cell forcing, the interception and
+    snow bucket over *dt* minutes.  Returns (forcing slice, cell forcing,
+    buckets); the frozen fractions are 1."""
     if terrain_radiation:
         factor = solar_mod.tsr_factor(
             dm.nx, dm.ny, dm.nz, tsr_sx, tsr_sy, tsr_sz, tsr_wdt, tsr_den,
@@ -69,7 +67,7 @@ def window_step(
         swnet_mode=swnet_mode, terrain_radiation=terrain_radiation,
         et_mode=et_mode,
     )
-    out = et_bucket_step(dm, cf, buckets, tout - t, cal.c_ismax)
+    out = et_bucket_step(dm, cf, buckets, dt, cal.c_ismax)
     ones = torch.ones_like(dm.nx)
     fs = ForcingSlice(
         net_prcp=out.net_prcp, prcp=cf.prcp,
@@ -79,17 +77,7 @@ def window_step(
         ele_ybc=bc_ele_ybc, ele_qbc=bc_ele_qbc, ele_qss=bc_ele_qss,
         riv_ybc=bc_riv_ybc, riv_qbc=bc_riv_qbc,
     )
-
-    def f(tt, yy, params):
-        mesh, slc = params
-        return rhs(mesh, slc, tt, yy, close_boundary=close_boundary)
-
-    def lin(tt, yy, params):
-        mesh, slc = params
-        return linearize(mesh, slc, tt, yy, close_boundary)
-
-    new_state = solve_to(f, bdf_state, tout, (dm, fs), cfg, linearize=lin)
-    return new_state, out.state, fs, cf
+    return fs, cf, out.state
 
 
 @dataclasses.dataclass
@@ -108,13 +96,15 @@ class Simulation:
                float_dtype: torch.dtype = torch.float64, calib=None,
                device: "str | torch.device" = "cuda",
                edge_kernel: "bool | str" = "auto",
-               inp: "ProjectInput | None" = None, **control_overrides):
+               inp: "ProjectInput | None" = None, dummy: bool = False,
+               **control_overrides):
         """Load *project* (or take *inp*, as ``FusedSimulation.create``
         does) and build the simulation on *device* (the card unless the
         caller asks for the CPU) in *float_dtype*; ``edge_kernel`` as in
         ``FusedSimulation.create``.  The frozen-ground module runs only in
         the fused driver (as in the JAX package), so ``cryosphere=1`` is
-        refused here."""
+        refused here unless the run solves nothing (``dummy``, the
+        reference's ``-0``)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -125,9 +115,11 @@ class Simulation:
             inp.calib = calib
         for k, v in control_overrides.items():
             setattr(inp.control, k, v)
-        if inp.control.cryosphere:
-            raise ValueError("the per-window driver has no cryosphere; "
-                             "run the fused driver (without --per-window)")
+        if inp.control.cryosphere and not dummy:
+            raise ValueError(
+                "the per-window and operator-split drivers have no "
+                "cryosphere; run the fused driver (without --per-window "
+                "or -g)")
         from shud_tpu_torch.io.validate import check_input
 
         check_input(inp)
@@ -158,28 +150,49 @@ class Simulation:
         y = self.bdf.y
         return torch.as_tensor(np.asarray(a), device=y.device).to(y.dtype)
 
-    def advance_window(self, tout: float):
-        """Advance to tout (one SolverStep window); returns (forcing slice,
-        cell forcing) of the window."""
+    def _window_forcing(self, tout: float):
         fr, md, t = self.fr, self.md, self.t
         d = self._dev
         sx, sy, sz, wdt, den = fr.tsr_sample(t)
         bc = fr.bc_values(md, t)
-        new_bdf, new_buckets, fs, cf = window_step(
-            self.dm, self.bdf, self.buckets,
+        return window_forcing(
+            self.dm, self.buckets,
             d(fr.station_values(t)), d(fr.station_z), d(fr.lai_at(t)),
             d(fr.mf_at(t)), d(sx), d(sy), d(sz), d(wdt), d(den),
             d(bc["ele_ybc"]), d(bc["ele_qbc"]), d(bc["ele_qss"]),
             d(bc["riv_ybc"]), d(bc["riv_qbc"]),
-            fr.cal, t, tout, fr.rad_factor_cap, fr.rad_cosz_min,
-            self.cfg,
-            close_boundary=bool(self.inp.control.close_boundary),
+            fr.cal, tout - t, fr.rad_factor_cap, fr.rad_cosz_min,
             terrain_radiation=fr.terrain_radiation,
             swnet_mode=fr.swnet_mode,
             et_mode=int(fr.et_mode),
         )
-        self.bdf = new_bdf
-        self.buckets = new_buckets
+
+    def forcing_slice(self, tout: float):
+        """Forcing and bucket update for [t, tout) without advancing the
+        implicit solver (the operator-split driver and the fixed-step
+        truth use it).  Returns (forcing slice, cell forcing)."""
+        fs, cf, self.buckets = self._window_forcing(tout)
+        self.t = tout
+        return fs, cf
+
+    def advance_window(self, tout: float):
+        """Advance to tout (one SolverStep window): forcing, buckets, then
+        the implicit solve, linearized once per Newton iteration.  Returns
+        (forcing slice, cell forcing) of the window."""
+        fs, cf, buckets = self._window_forcing(tout)
+        cb = bool(self.inp.control.close_boundary)
+
+        def f(tt, yy, params):
+            mesh, slc = params
+            return rhs(mesh, slc, tt, yy, close_boundary=cb)
+
+        def lin(tt, yy, params):
+            mesh, slc = params
+            return linearize(mesh, slc, tt, yy, cb)
+
+        self.bdf = solve_to(f, self.bdf, tout, (self.dm, fs), self.cfg,
+                            linearize=lin)
+        self.buckets = buckets
         self.t = tout
         return fs, cf
 

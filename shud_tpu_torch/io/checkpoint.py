@@ -2,7 +2,8 @@
 
 The counterpart of ``shud_tpu/io/checkpoint.py``, with the same ``.npz``
 layout: one array per state leaf, keyed by its path (``bdf/y``,
-``bdf/quad/et``, ``buckets/snow``, ``cryo/surf/ring``, ...), plus
+``bdf/quad/et``, ``buckets/snow``, ``cryo/surf/ring``, ...; the
+operator-split driver's five solvers under ``bdf/surf/y``, ...), plus
 ``__t__``.  A checkpoint
 written by either package loads into the other, and a resumed run
 continues the saved trajectory bit for bit (solver history, step size,
@@ -23,17 +24,33 @@ _INT_FIELDS = ("order", "nfe", "nsteps", "nfails", "nnifails", "size",
                "head", "n_day")
 
 
+def _solver_states(sim) -> dict:
+    """Key prefix -> ``BDFState``: ``bdf`` for one solver; ``bdf/<part>``
+    for each solver of the operator-split driver, whose shim holds a dict
+    of them (``None`` for an absent lake)."""
+    if isinstance(sim.bdf, dict):
+        return {f"bdf/{part}": st for part, st in sim.bdf.items()
+                if st is not None}
+    return {"bdf": sim.bdf}
+
+
+def _np_dtype(sim):
+    """The numpy scalar type of the solver state."""
+    return np_dtype(next(iter(_solver_states(sim).values())).y.dtype)
+
+
 def _leaves(sim) -> dict:
     """Path -> value of every state leaf (tensors, host scalars)."""
     out = {}
-    for name, v in sim.bdf._asdict().items():
-        if v is None:
-            continue
-        if name == "quad":
-            for k, q in v.items():
-                out[f"bdf/quad/{k}"] = q
-        else:
-            out[f"bdf/{name}"] = v
+    for prefix, st in _solver_states(sim).items():
+        for name, v in st._asdict().items():
+            if v is None:
+                continue
+            if name == "quad":
+                for k, q in v.items():
+                    out[f"{prefix}/quad/{k}"] = q
+            else:
+                out[f"{prefix}/{name}"] = v
     for name, v in sim.buckets._asdict().items():
         out[f"buckets/{name}"] = v
     if sim.cryo is not None:
@@ -52,7 +69,7 @@ def save_checkpoint(path: str, sim) -> None:
         elif key.rsplit("/", 1)[-1] in _INT_FIELDS:
             payload[key] = np.asarray(v, dtype=np.int32)
         elif key.endswith("/time_start"):
-            payload[key] = np.asarray(v, dtype=np_dtype(sim.bdf.y.dtype))
+            payload[key] = np.asarray(v, dtype=_np_dtype(sim))
         else:
             payload[key] = np.asarray(v)
     with open(path, "wb") as f:
@@ -69,15 +86,16 @@ def load_checkpoint(path: str, sim) -> None:
     port's flat state.  Any other shape mismatch raises."""
     with np.load(path) as z:
         data = {k: z[k] for k in z.files}
-    dt = np_dtype(sim.bdf.y.dtype)
+    dt = _np_dtype(sim)
     new = {}
     for key, leaf in _leaves(sim).items():
         if key not in data:
             raise KeyError(f"checkpoint {path} missing leaf {key!r}")
         v = data[key]
         if isinstance(leaf, torch.Tensor) and v.shape != tuple(leaf.shape):
-            md = sim.md
-            flat = unblock_tpu_state(v, md.num_ele, md.num_riv, md.num_lake)
+            md = getattr(sim, "md", None)  # the split shim has none
+            flat = None if md is None else unblock_tpu_state(
+                v, md.num_ele, md.num_riv, md.num_lake)
             if flat is None or flat.shape != tuple(leaf.shape):
                 raise ValueError(
                     f"checkpoint {path}: {key} has shape {v.shape}, the "
@@ -92,10 +110,17 @@ def load_checkpoint(path: str, sim) -> None:
             new[key] = float(v)
         else:
             new[key] = dt(v)
-    bdf = {name: new.get(f"bdf/{name}") for name in BDFState._fields}
-    if sim.bdf.quad is not None:
-        bdf["quad"] = {k: new[f"bdf/quad/{k}"] for k in sim.bdf.quad}
-    sim.bdf = BDFState(**bdf)
+    states = {}
+    for prefix, st in _solver_states(sim).items():
+        bdf = {name: new.get(f"{prefix}/{name}")
+               for name in BDFState._fields}
+        if st.quad is not None:
+            bdf["quad"] = {k: new[f"{prefix}/quad/{k}"] for k in st.quad}
+        states[prefix] = BDFState(**bdf)
+    if isinstance(sim.bdf, dict):
+        sim.bdf = {part: states.get(f"bdf/{part}") for part in sim.bdf}
+    else:
+        sim.bdf = states["bdf"]
     sim.buckets = BucketState(
         **{name: new[f"buckets/{name}"] for name in BucketState._fields})
     if sim.cryo is not None:

@@ -93,6 +93,10 @@ def bdf_init(t0, y0: torch.Tensor, cfg: SolverConfig, quad0=None) -> BDFState:
     )
 
 
+# a Gram-Schmidt remainder below this many eps of A·v is a breakdown
+_BREAKDOWN = 16.0
+
+
 def _dot(a, b):
     return torch.dot(a, b)
 
@@ -105,7 +109,15 @@ def _wrms(x, ewt):
 def _gmres(matvec, b, m):
     """Single-cycle matrix-free GMRES(m), modified Gram-Schmidt with
     incremental Givens rotations, x0 = 0.  The scalars stay 0-d tensors on
-    the device (no host round trip inside the Krylov loop)."""
+    the device (no host round trip inside the Krylov loop).
+
+    Breakdown: when the Krylov space is invariant, what Gram-Schmidt leaves
+    of A·v is round-off (relative 1e-16 in f64), and a direction built
+    from it ruins the least-squares solve (the surface sub-system of the
+    split driver on a uniformly dry surface under uniform rain returned
+    dy = 0).  Such a remainder (below ``_BREAKDOWN`` eps of A·v) counts
+    as zero, as an exactly cancelling one does, so the Krylov solve stops
+    there; elsewhere the iteration is the JAX package's, bit for bit."""
     beta = torch.sqrt(_dot(b, b))
     safe = torch.where(beta > 0, beta, 1.0)
     vs = [b / safe]
@@ -113,14 +125,17 @@ def _gmres(matvec, b, m):
     givens = []
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
     g = [beta] + [zero] * m
+    tol = _BREAKDOWN * torch.finfo(b.dtype).eps
     for j in range(m):
         w = matvec(vs[j])
+        w0 = torch.sqrt(_dot(w, w))
         hcol = []
         for i in range(j + 1):
             hij = _dot(vs[i], w)
             hcol.append(hij)
             w = -hij * vs[i] + w
         wnorm = torch.sqrt(_dot(w, w))
+        wnorm = torch.where(wnorm > tol * w0, wnorm, 0.0)
         wsafe = torch.where(wnorm > 0, wnorm, 1.0)
         vs.append(w / wsafe)
         # apply previous rotations to this column (i < j, acts on i, i+1)

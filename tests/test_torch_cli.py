@@ -1,9 +1,10 @@
 """The port's command line (``python -m shud_tpu_torch``), per-window driver,
 debug tables and calibration helpers against the JAX package's.
 
-The per-window driver: ``window_step`` against JAX's on a synthetic 8x4
-mesh in f64 (states within 1e-9, equal NFE), the per-window run against
-the port's fused run, and ``run_project`` (and its ``-0`` IO-only mode).
+The per-window driver: ``Simulation.advance_window`` against JAX's on a
+synthetic 8x4 mesh in f64 (states within 1e-9, equal NFE), the per-window
+run against the port's fused run, and ``run_project`` (and its ``-0``
+IO-only mode, on a frozen-ground project too, with JAX's file set).
 The debug tables byte-equal to JAX's; ``calib_from_vector``, ``nse`` and
 ``cma_es`` equal to JAX's.  The CLI: each honoured flag reaches the right
 driver with the right arguments (the drivers are replaced by recorders),
@@ -27,6 +28,7 @@ torch.set_num_threads(1)
 from shud_tpu_torch import cli  # noqa: E402
 from shud_tpu_torch.driver import run as trun  # noqa: E402
 from shud_tpu_torch.driver import run_fast as trf  # noqa: E402
+from shud_tpu_torch.driver import uncoupled as tun  # noqa: E402
 from torch_variants import make_project  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -80,7 +82,7 @@ def _torch_simulation(inp):
 def test_window_step_matches_jax(variant):
     """Six windows (one hour from the storm's onset at minute 720, where
     the surface wets) through both packages' per-window drivers:
-    window_step's states within 1e-9 and equal NFE after every window."""
+    the states within 1e-9 and equal NFE after every window."""
     a, b = (make(_storm(pkg, variant)) for pkg, make in (
         ("jax", _jax_simulation), ("torch", _torch_simulation)))
     assert a.t == b.t == float(b.bdf.t) == 720.0
@@ -145,6 +147,40 @@ def test_per_window_refuses_cryosphere():
     inp.control.cryosphere = 1
     with pytest.raises(ValueError, match="cryosphere"):
         _torch_simulation(inp)
+
+
+def test_dummy_run_on_frozen_ground_matches_jax(tmp_path, monkeypatch):
+    """-0 on a cryosphere=1 project solves nothing, so the frozen-ground
+    module cannot change its output: the port writes the file set of the
+    JAX package's run_project(..., dummy=True) on the same project, each
+    binary file the same size."""
+    from shud_tpu.driver import run as jrun
+    from shud_tpu.driver import simulate as jsim
+
+    def project(pkg):
+        inp = make_project(pkg, "lake", 8, 4, 1.0)
+        inp.control.cryosphere = 1
+        for name in vars(inp.control):
+            if name.startswith("dt_"):
+                setattr(inp.control, name, 60)
+        return inp
+
+    jinp = project("jax")
+    monkeypatch.setattr(jsim, "load_project", lambda prj, base=".": jinp)
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jrun.run_project("synthetic", end_day=2.0 / 24, verbose=False,
+                     dummy=True, outpath=out_j)
+    sim = trun.run_project("synthetic", end_day=2.0 / 24, verbose=False,
+                           dummy=True, outpath=out_t, device="cpu",
+                           inp=project("torch"))
+    assert sim.t == 120.0 and sim.bdf.nfe == 0
+    files = sorted(os.listdir(out_j))
+    assert files == sorted(os.listdir(out_t))
+    assert "synthetic.lakystage.dat" in files
+    for f in files:
+        if f.endswith(".dat"):
+            assert (os.path.getsize(os.path.join(out_j, f))
+                    == os.path.getsize(os.path.join(out_t, f))), f
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +263,7 @@ def drivers(monkeypatch):
 
     monkeypatch.setattr(trf, "run_project_fast", record("fast"))
     monkeypatch.setattr(trun, "run_project", record("per_window"))
+    monkeypatch.setattr(tun, "run_project_split", record("split"))
     return calls
 
 
@@ -267,6 +304,21 @@ def test_cli_per_window_route(drivers, flag, dummy):
                       float_dtype=torch.float32, edge_kernel=True)
 
 
+@pytest.mark.parametrize("flag", ("-g", "--split"))
+def test_cli_split_route(drivers, flag):
+    """-g reaches run_project_split with the device, paths and
+    calibration, as the JAX CLI passes them (shud_tpu/cli.py:179-184)."""
+    cli.main([flag, "--cpu", "-e", "0.5", "-o", "out", "-b", "base", "-q",
+              "prj"])
+    (name, args, kw), = drivers
+    assert name == "split" and args == ("prj",)
+    assert kw == dict(base="base", end_day=0.5, verbose=False, outpath="out",
+                      calib=None, device="cpu")
+    drivers.clear()
+    cli.main([flag, "prj"])
+    assert drivers[0][2]["device"] == "cuda"
+
+
 def test_cli_calib_fflush_and_workers(drivers, tmp_path, monkeypatch,
                                       capsys):
     from shud_tpu_torch.io import output
@@ -298,9 +350,10 @@ def test_cli_project_file(drivers, monkeypatch):
     assert name == "fast" and args == ("fromfile",)
     assert kw["inp"] == ("loaded", "fromfile", Paths)
     assert kw["outpath"] == "out_from_file"
-    with pytest.raises(SystemExit) as e:
-        cli.main(["-p", "x.SHUD", "--per-window"])
-    assert e.value.code != 0
+    for flag in ("--per-window", "-g"):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["-p", "x.SHUD", flag])
+        assert e.value.code != 0
 
 
 def test_cli_cmaes_dir(drivers, tmp_path):
@@ -338,8 +391,12 @@ def test_cli_shud_error_exit_code(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,message", (
-    (["-g", "prj"], "driver/uncoupled.py"),
-    (["--split", "prj"], "driver/uncoupled.py"),
+    (["-g", "--f32", "prj"], "--f32: not supported with -g"),
+    (["-g", "--resume", "ck", "prj"], "--resume: not supported with -g"),
+    (["-g", "-0", "prj"], "-0: not supported with -g"),
+    (["-g", "--mega", "prj"], "--mega/--no-mega: not supported with -g"),
+    (["--split", "--no-pallas", "--per-window", "prj"],
+     "--pallas/--no-pallas, --per-window: not supported with -g"),
     (["--shards", "2", "prj"], "multi-GPU"),
     (["--distributed", "prj"], "multi-GPU"),
     (["--distributed=host:1234,2,0", "prj"], "multi-GPU"),
@@ -357,13 +414,13 @@ def test_cli_refused(drivers, capsys, argv, message):
 
 
 def test_cli_module_help():
-    """``python -m shud_tpu_torch -h`` exits 0 and ``-g`` exits non-zero,
-    in a fresh process."""
+    """``python -m shud_tpu_torch -h`` exits 0 and a refused flag
+    (``--shards 2``) exits non-zero, in a fresh process."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     ok = subprocess.run([sys.executable, "-m", "shud_tpu_torch", "-h"],
                         capture_output=True, text=True, cwd=ROOT, env=env)
     assert ok.returncode == 0 and "--per-window" in ok.stdout
-    bad = subprocess.run([sys.executable, "-m", "shud_tpu_torch", "-g",
-                          "prj"], capture_output=True, text=True, cwd=ROOT,
-                         env=env)
-    assert bad.returncode != 0 and "driver/uncoupled.py" in bad.stderr
+    bad = subprocess.run([sys.executable, "-m", "shud_tpu_torch", "--shards",
+                          "2", "prj"], capture_output=True, text=True,
+                         cwd=ROOT, env=env)
+    assert bad.returncode != 0 and "multi-GPU" in bad.stderr

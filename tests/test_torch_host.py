@@ -126,10 +126,27 @@ def test_port_sources_import_no_jax():
                     assert not pat.search(fh.read()), os.path.join(d, f)
 
 
-def test_netcdf_forcing_refused(tmp_path):
+def test_netcdf_forcing_refused(tmp_path, monkeypatch):
+    """NetCDF forcing is read since it was ported (tests/test_torch_netcdf.py
+    holds it against the JAX package's); what it cannot read is refused: a
+    project without its station list, and a NetCDF-4 file where h5py is
+    absent, with a message that names h5py."""
     from shud_tpu_torch.io.project import FilePaths, _read_forc_netcdf
 
     paths = FilePaths(project="x", inpath=str(tmp_path),
                       outpath=str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        _read_forc_netcdf(paths, make_project("torch", "plain").control)
+    cs = make_project("torch", "plain").control
+    cs.forcing_cfg = "forcing.cfg"
+    with pytest.raises(FileNotFoundError):
+        _read_forc_netcdf(paths, cs)
+    (tmp_path / "x.tsd.forc").write_text(
+        "1 20000101\n\nID Lon Lat X Y Z\n1 -122.4 39.4 0 0 100 netcdf\n")
+    (tmp_path / "forcing.cfg").write_text(
+        f"PRODUCT CMFD2\nDATA_ROOT {tmp_path}\n"
+        "LAYOUT_FILE_PATTERN {var_lower}_{yyyymm}.nc\n"
+        + "".join(f"NC_VAR_{k} {k.lower()}\n"
+                  for k in ("PREC", "TEMP", "SHUM", "SRAD", "WIND", "PRES")))
+    (tmp_path / "prec_200001.nc").write_bytes(b"\x89HDF\r\n\x1a\n" + bytes(64))
+    monkeypatch.setitem(sys.modules, "h5py", None)
+    with pytest.raises(ImportError, match="h5py"):
+        _read_forc_netcdf(paths, cs)

@@ -216,3 +216,25 @@ def test_edge_linearize_hook_matches_func_jvp_route(variant, monkeypatch):
     assert b.nsteps > 3 and float(b.t) == 10.0
     assert np.abs(a.y.numpy() - b.y.numpy()).max() <= 1e-9
     assert calls_a == 0 and calls_b == it_b == it_a > 0
+
+
+@pytest.mark.parametrize("dtype,bar", ((torch.float64, 1e-14),
+                                       (torch.float32, 1e-6)))
+@pytest.mark.parametrize("rank", (1, 2))
+def test_gmres_invariant_krylov_space(dtype, bar, rank):
+    """GMRES(3) on a system whose Krylov space is invariant after *rank*
+    vectors (a matrix with *rank* distinct eigenvalues, a right-hand side
+    uniform on each eigenspace): what Gram-Schmidt leaves is round-off,
+    counted as the breakdown it is, and the solve is exact.  Built on that
+    round-off as a direction, the next vector broke the least-squares
+    solve (the surface sub-system of the split driver on a uniformly dry
+    surface under uniform rain returned 0)."""
+    from shud_tpu_torch.solver.bdf import _gmres
+
+    n = 48
+    diag = torch.full((n,), 0.99, dtype=dtype)
+    if rank == 2:
+        diag[n // 2:] = 1.7
+    b = torch.full((n,), 4.8e-7, dtype=dtype)
+    x = _gmres(lambda v: diag * v, b, 3)
+    assert (x - b / diag).abs().max() <= bar * (b / diag).abs().max()

@@ -147,3 +147,91 @@ def mega_inputs(md, seed: int):
     fs = {k: v.astype(np.float32) for k, v in fs.items()}
     v = rng.normal(0.0, 1.0, y.shape[0]).astype(np.float32)
     return fs, y, v
+
+
+# the CMFD2 variables: (cfg key, file variable, units)
+CMFD_VARS = (("PREC", "prec", "mm/day"), ("TEMP", "temp", "K"),
+             ("SHUM", "shum", "kg/kg"), ("SRAD", "srad", "W m-2"),
+             ("WIND", "wind", "m s-1"), ("PRES", "pres", "Pa"))
+CMFD_PRES = 1.0e5  # [Pa]
+
+
+def cmfd_table(forc, end_min: float):
+    """The first station's forcing table as a CMFD2 product carries it:
+    records from minute 0 (a record before the forcing's start holds at
+    minute 0, as its step semantics do) to ``end_min`` + one day, each
+    column quantised by the product reader's rules (precipitation 1e-4
+    mm/day, temperature 0.01 C, humidity 1e-4, wind 0.01 m/s, radiation
+    1 W/m2).  Returns (t_min [K], data [K, 5])."""
+    from shud_tpu_torch.io.ncforcing import _quantise
+
+    t = np.asarray(forc.t_min[0], np.float64)
+    data = np.asarray(forc.data[0], np.float64)
+    first = max(int(np.searchsorted(t, 0.0, side="right")) - 1, 0)
+    keep = np.arange(len(t)) >= first
+    keep &= t <= end_min + 1440.0
+    t, data = np.maximum(t[keep], 0.0), data[keep]
+    cols = _quantise(*(data[:, j] for j in range(5)))
+    return t, np.stack(cols, axis=1)
+
+
+def write_cmfd_netcdf3(inp, inpath: str, end_min: float):
+    """Write *inp*'s forcing (one station) as a CMFD2 NetCDF-3 product
+    (``scipy.io.netcdf_file``, one file per variable and month), with its
+    ``tsd.forc`` station list and forcing cfg under *inpath*, and switch
+    *inp* to it (``FORCING_MODE NETCDF``).  Returns the table the files
+    hold (``cmfd_table``)."""
+    import datetime
+    import os
+
+    from scipy.io import netcdf_file
+
+    forc = inp.forc
+    t_min, data = cmfd_table(forc, end_min)
+    start = int(forc.start_yyyymmdd)
+    day0 = datetime.date(start // 10000, start // 100 % 100, start % 100)
+    temp_k = data[:, 1] + 273.15
+    shum = (data[:, 2] * 100.0 * np.exp(17.67 * (temp_k - 273.15)
+                                        / (temp_k - 29.65))
+            / (0.263 * CMFD_PRES))
+    values = {"PREC": data[:, 0], "TEMP": temp_k, "SHUM": shum,
+              "SRAD": data[:, 4], "WIND": data[:, 3],
+              "PRES": np.full(len(t_min), CMFD_PRES)}
+    lon, lat = float(forc.lon[0]), float(forc.lat[0])
+    os.makedirs(inpath, exist_ok=True)
+    months = sorted({(day0 + datetime.timedelta(minutes=float(t)))
+                     .strftime("%Y%m") for t in t_min})
+    for yyyymm in months:
+        first = datetime.date(int(yyyymm[:4]), int(yyyymm[4:]), 1)
+        off = (first - day0).days * 1440.0
+        nxt = datetime.date(first.year + first.month // 12,
+                            first.month % 12 + 1, 1)
+        sel = (t_min >= max(off, 0.0)) & (t_min < (nxt - day0).days * 1440.0)
+        for key, name, units in CMFD_VARS:
+            with netcdf_file(os.path.join(inpath, f"{name}_{yyyymm}.nc"),
+                             "w") as f:
+                f.createDimension("time", int(sel.sum()))
+                f.createDimension("lat", 1)
+                f.createDimension("lon", 1)
+                tv = f.createVariable("time", "f8", ("time",))
+                tv.units = f"hours since {day0.isoformat()} 00:00"
+                tv[:] = t_min[sel] / 60.0
+                f.createVariable("lat", "f8", ("lat",))[:] = [lat]
+                f.createVariable("lon", "f8", ("lon",))[:] = [lon]
+                v = f.createVariable(name, "f8", ("time", "lat", "lon"))
+                v.units = units
+                v[:] = values[key][sel][:, None, None]
+    z = float(forc.xyz[0][2])
+    prj = inp.paths.project
+    with open(os.path.join(inpath, f"{prj}.tsd.forc"), "w") as f:
+        f.write(f"1 {start}\n{inpath}\nID Lon Lat X Y Z Filename\n"
+                f"1 {lon} {lat} 0 0 {z} netcdf\n")
+    with open(os.path.join(inpath, "forcing.cfg"), "w") as f:
+        f.write("PRODUCT CMFD2\n"
+                f"DATA_ROOT {inpath}\n"
+                "LAYOUT_FILE_PATTERN {var_lower}_{yyyymm}.nc\n"
+                + "".join(f"NC_VAR_{k} {n}\n" for k, n, _ in CMFD_VARS))
+    inp.paths.inpath = inpath
+    inp.control.forcing_mode = "NETCDF"
+    inp.control.forcing_cfg = "forcing.cfg"
+    return t_min, data
