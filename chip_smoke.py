@@ -77,7 +77,18 @@ and the script exits nonzero; nothing falls back to the CPU):
     written and read back;
 16. the 131k mesh refined twice (2,097,152 cells): the edge-kernel path
     beside the plain path over the 6 storm windows within 2e-5 m, with
-    phase 7's launch counts; set-up time, wall per window, peak memory.
+    phase 7's launch counts; set-up time, wall per window, peak memory;
+17. the sharded driver (shud_tpu_torch/parallel) at 131k: the partition
+    (build time, np_cells, halo per round, rounds K), the edge trio at one
+    shard's shape against its plain versions, then 4 ranks on this card
+    over gloo (explicit host staging), 6 storm windows in f32 with the
+    edge kernels beside the same on their plain versions (2e-5 m) and
+    beside the single-device f32 edge path (2e-5 m under phase 8's rule,
+    NFE within 2%); every rank the same steps, NFE and Newton iterations,
+    and per rank edge_coeff once per Newton iteration, edge_apply
+    krylov_m times and edge_flux once a window; run_project_sharded over
+    one simulated hour writes run_project_fast's file set, the same
+    headers, payloads within 1e-4; NCCL with 2 ranks where 2 GPUs exist.
 The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -86,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -151,6 +163,8 @@ SPLIT_BAR, SPLIT_BAR_LAKE = 5e-3, 5e-2
 TRUTH_H, TRUTH_SELF, TRUTH_BAR = 0.5, 1e-4, 5e-4
 # the refined mesh: the edge path's 131k mesh split 4:1 this many times
 REFINE_LEVELS = 2
+# the sharded driver's ranks on the one card (gloo, host staging)
+SHARDS = 4
 
 # written before each call of a cold-L2 time: above the H100's 50 MB L2
 FLUSH_BYTES = 64 << 20
@@ -1353,21 +1367,23 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
     ne = fine.tri.shape[0]
     check(ne == inp.tri.shape[0] * 4 ** REFINE_LEVELS, "wrong refined size")
     out = {"num_ele": ne, "refine_s": refine_s}
-    sims = {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for name, kw in (("kernel", {}), ("plain", {"edge_kernel": False})):
-        t0 = time.perf_counter()
-        sims[name] = storm_sim(fine, torch, **kw)
-        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k = storm_sim(fine, torch)
+    torch.cuda.synchronize()
+    # the plain path shares the kernel simulation's (read-only) mesh and
+    # forcing tensors, with the edge kernels switched off: one set-up
+    sims = {"kernel": k, "plain": dataclasses.replace(
+        k, dm=dataclasses.replace(k.dm, edge_kernel=False))}
+    for name in sims:
         out[name] = {"setup_s": time.perf_counter() - t0, "window_wall_s": []}
         out[name]["resident_gib"] = torch.cuda.memory_allocated() / 2**30
-    md = sims["kernel"].md
+    md = k.md
     log(f"  refined mesh: {md.num_ele} cells, {md.num_riv} reaches, "
         f"{md.num_seg} segments; refined in {refine_s:.2f} s, set-up "
-        + ", ".join(f"{n} {out[n]['setup_s']:.2f} s" for n in sims)
-        + f"; device memory with both resident "
-        f"{out['plain']['resident_gib']:.2f} GiB")
+        f"{out['kernel']['setup_s']:.2f} s (the plain path shares it); "
+        f"device memory resident {out['plain']['resident_gib']:.2f} GiB")
     edge.reset_launch_counts()
     iters = 0
     for w in range(STORM_WINDOWS):
@@ -1387,7 +1403,6 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
               f"refined: kernel path parts by {gap:.3e} m (window {w})")
     counts = dict(edge.launch_counts)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    k = sims["kernel"]
     for name, sim in sims.items():
         check(sim.mega is None, "the refined mesh took the mega path")
         out[name]["nfe"] = sim.bdf.nfe
@@ -1404,6 +1419,325 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
           "refined: NFE of the plain path differs by more than 2%")
     out.update(max_dy_m=gap, newton_iters=iters, launches=counts,
                peak_gib=peak)
+    return out
+
+def timed_collectives(group) -> dict:
+    """Count and time this rank's halo exchanges and gathers (the psums
+    go through all_gather): the group's two methods wrapped in place.
+    The time holds the wait for the other ranks."""
+    stats = {"ppermute_round": [0, 0.0], "all_gather": [0, 0.0]}
+    for name in stats:
+        fn = getattr(group, name)
+
+        def wrapped(*args, _fn=fn, _st=stats[name]):
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            _st[0] += 1
+            _st[1] += time.perf_counter() - t0
+            return out
+
+        setattr(group, name, wrapped)
+    return stats
+
+
+def sharded_rank(group, inp, n_windows, hour=None,
+                 paths=("kernel", "plain")):
+    """A rank of phase 17 (``comm.spawn`` pickles it by name): the sharded
+    simulation over *n_windows* storm windows with the edge kernels, the
+    same on their plain versions, then (*hour*: its output directory and
+    project) ``run_project_sharded`` over the hour.  Every launch count is
+    set to 0 just before a run's first window and read after its last."""
+    import torch
+
+    from shud_tpu_torch.core import edge
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.parallel.runtime import (
+        ShardedSimulation, run_project_sharded)
+    from shud_tpu_torch.solver import bdf
+
+    md = build_mesh(inp)
+    out = {"rank": group.rank}
+    stats = timed_collectives(group)
+    for name in paths:
+        kernel = "auto" if name == "kernel" else False
+        t0 = time.perf_counter()
+        sim = ShardedSimulation(inp, md, group, float_dtype=torch.float32,
+                                edge_kernel=kernel)
+        setup_s = time.perf_counter() - t0
+        # the first RHS, linearization and J·v of a fresh process, timed
+        # apart from the windows (zero forcing; the state stays as it is)
+        rhs = sim.rhs
+        zc = torch.zeros(rhs.np_cells, device=rhs.device)
+        zr = torch.zeros(rhs.nr_riv, device=rhs.device)
+        slc = rhs.forcing_slice(
+            dict.fromkeys(("net_prcp", "prcp", "pot_evap", "pot_tran",
+                           "e_ic", "lai", "fu_surf", "fu_sub", "ele_ybc",
+                           "ele_qbc", "ele_qss"), zc),
+            {"riv_ybc": zr, "riv_qbc": zr})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rhs.rhs_full(0.0, sim.state.y, slc)
+        rhs.linearize(0.0, sim.state.y, slc)[1](sim.state.y)
+        torch.cuda.synchronize()
+        first_call_s = time.perf_counter() - t0
+        walls, ys, coll = [], [], []
+        edge.reset_launch_counts()
+        it0 = bdf.newton_iters
+        for _ in range(n_windows):
+            acc = sim.acc_zero()
+            torch.cuda.synchronize()
+            group.barrier()
+            c0 = {k: list(v) for k, v in stats.items()}
+            t0 = time.perf_counter()
+            sim.advance_window(sim.t + inp.control.solver_step, acc)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            coll.append({k: [v[0] - c0[k][0], v[1] - c0[k][1]]
+                         for k, v in stats.items()})
+            y = sim.y_full()
+            if group.is_main:
+                ys.append(y)
+        out[name] = dict(launches=dict(edge.launch_counts),
+                         newton_iters=bdf.newton_iters - it0, nfe=sim.nfe,
+                         nsteps=int(sim.state.nsteps), wall_s=walls,
+                         collectives=coll, setup_s=setup_s,
+                         first_call_s=first_call_s,
+                         krylov_m=sim.cfg.krylov_m, ys=ys)
+    if hour is None:
+        return out
+    outdir, hour_inp = hour
+    t0 = time.perf_counter()
+    sim = run_project_sharded("synthetic", group=group, inp=hour_inp,
+                              outpath=outdir, float_dtype=torch.float32,
+                              verbose=group.is_main)
+    out["hour"] = {"wall_s": time.perf_counter() - t0, "nfe": sim.nfe,
+                   "y": sim.y_full()}
+    return out
+
+
+def compare_outputs(sh_dir: str, sd_dir: str) -> dict:
+    """The sharded driver's output directory against run_project_fast's:
+    the same file set, byte-identical .dat headers, each .dat payload
+    within 1e-4 of the largest value (at least 1), as the JAX package's
+    tests/test_sharded_driver.py holds its two drivers."""
+    import numpy as np
+
+    files = sorted(os.listdir(sd_dir))
+    check(sorted(os.listdir(sh_dir)) == files,
+          f"sharded file set {sorted(os.listdir(sh_dir))} vs {files}")
+    worst = ("", 0.0)
+    for fn in files:
+        if not fn.endswith(".dat"):
+            continue
+        with open(os.path.join(sh_dir, fn), "rb") as f0, \
+                open(os.path.join(sd_dir, fn), "rb") as f1:
+            h0, h1 = f0.read(1024), f1.read(1024)
+            d0 = np.frombuffer(f0.read(), np.float64)
+            d1 = np.frombuffer(f1.read(), np.float64)
+        check(h0 == h1, f"{fn}: headers differ")
+        check(d0.shape == d1.shape and bool(np.isfinite(d0).all()),
+              f"{fn}: payload shape or non-finite")
+        err = float(np.abs(d0 - d1).max()) / max(1.0, float(np.abs(d1).max()))
+        if err >= worst[1]:
+            worst = (fn, err)
+        check(err < 1e-4, f"{fn}: payloads part by {err:.3e} (scaled)")
+    log(f"  output files: {len(files)}, headers equal; worst payload "
+        f"{worst[0]} {worst[1]:.3e} (scaled, bar 1e-4)")
+    return {"files": len(files), "worst_file": worst[0],
+            "worst_scaled": worst[1]}
+
+
+def shard_kernel_times(sm, torch, edge) -> dict:
+    """The edge trio at one shard's shape (rank 0's cell block with its
+    ghost rows): kernel and plain times (CUDA events, median of 20), the
+    bound, and kernel vs plain."""
+    import numpy as np
+
+    from shud_tpu_torch.parallel.comm import Group
+    from shud_tpu_torch.parallel.sharded import ShardRHS
+
+    rhs = ShardRHS(sm, Group(0, sm.p, DEVICE), torch.float32)
+    et = rhs.ev.edge_tables
+    n = et.dep.shape[0]
+    rng = np.random.default_rng(3)
+
+    def t(a):
+        return torch.as_tensor(a, device=DEVICE).to(torch.float32)
+
+    sf = rng.uniform(0, 0.05, n)
+    sf[::7] = 0.0
+    sf, gw, kh = t(sf), t(rng.uniform(0, 8.0, n)), t(rng.uniform(0, 1e-3, n))
+    tan = [t(rng.standard_normal(n)) for _ in range(3)]
+    coeffs = edge.edge_coeff_plain(sf, gw, kh, et, True)[2:]
+    tables = edge._table_list(et)
+    ne3 = 3 * n
+    calls = {
+        "edge_flux": (lambda: edge.edge_flux(sf, gw, kh, et, True),
+                      lambda: edge.edge_flux_plain(sf, gw, kh, et, True),
+                      nbytes(sf, gw, kh, *tables) + 2 * 4 * ne3),
+        "edge_coeff": (lambda: edge.edge_coeff(sf, gw, kh, et, True),
+                       lambda: edge.edge_coeff_plain(sf, gw, kh, et, True),
+                       nbytes(sf, gw, kh, *tables) + 8 * 4 * ne3),
+        "edge_apply": (lambda: edge.edge_apply(coeffs, *tan, et),
+                       lambda: edge.edge_apply_plain(coeffs, *tan, et),
+                       nbytes(*tan, et.nabr, *coeffs) + 2 * 4 * ne3),
+    }
+    out = {"rows": n}
+    for name, (kern, plain, n_bytes) in calls.items():
+        err = max(abs_err(a, b) for a, b in zip(plain(), kern()))
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        bound_ms, bound_by = bound(n_bytes, EDGE_OPS[name] * ne3)
+        log(f"  per shard ({n} rows): {name} {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms (CUDA events), bound {bound_ms:.5f} ms "
+            f"({bound_by}), max |kernel - plain| {err:.3e}")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err}
+    return out
+
+
+def phase_sharded(inp, torch, edge, smi: str) -> dict:
+    """Phase 17: the domain-decomposed driver (parallel/) at 131,072 cells,
+    SHARDS ranks time-sliced on this one card over gloo (explicit host
+    staging), 6 storm windows in float32: with the edge kernels beside the
+    same on their plain versions (within 2e-5 m after every window) and
+    beside the single-device f32 edge path (within 2e-5 m after every
+    window in which the single-device float32 and float64 runs agree,
+    phase 8's rule; NFE within 2%); every rank takes the same steps, NFE
+    and Newton iterations; per rank edge_coeff once per Newton iteration,
+    edge_apply krylov_m times and edge_flux once a window.  Then
+    run_project_sharded over one simulated hour against run_project_fast
+    (compare_outputs).  NCCL with two ranks on a host with two GPUs."""
+    import numpy as np
+
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.driver.run_fast import run_project_fast
+    from shud_tpu_torch.parallel import comm
+    from shud_tpu_torch.parallel.partition import build_sharded_mesh
+
+    at = copy.deepcopy(inp)
+    at.control.day_start = 720.0 / 1440.0
+    md = build_mesh(at)
+    t0 = time.perf_counter()
+    sm = build_sharded_mesh(md, SHARDS)
+    part_s = time.perf_counter() - t0
+    plan = sm.plan
+    log(f"  {smi}; partition of {md.num_ele} cells into {SHARDS} shards in "
+        f"{part_s:.3f} s: np_cells {sm.np_cells}, nr_riv {sm.nr_riv}, "
+        f"rounds K {plan.k}, halo per round: cells {plan.s_cell}, reaches "
+        f"{plan.s_riv}; ghost rows {plan.g_cell}")
+    out = {"card": smi, "shards": SHARDS, "partition_s": part_s,
+           "np_cells": sm.np_cells, "rounds": plan.k,
+           "halo_cells": plan.s_cell, "halo_reaches": plan.s_riv,
+           "per_shard": shard_kernel_times(sm, torch, edge)}
+
+    # the single-device references: f32 with the edge kernels, f64
+    refs = {"f32": storm_sim(inp, torch), "f64": storm_sim(
+        inp, torch, float_dtype=torch.float64)}
+    ref_y = {k: [] for k in refs}
+    for _ in range(STORM_WINDOWS):
+        for k, sim in refs.items():
+            advance(sim, 10.0)
+            ref_y[k].append(sim.y_np().astype(np.float64))
+
+    hour = copy.deepcopy(at)
+    cs = hour.control
+    for name in vars(cs):
+        if name.startswith("dt_") and getattr(cs, name):
+            setattr(cs, name, 60)
+    cs.update_ic_step = 60
+    end_day = (720.0 + 60.0) / 1440.0
+    with tempfile.TemporaryDirectory(prefix="shud_shard_") as tmp:
+        sh_dir, sd_dir = os.path.join(tmp, "sh"), os.path.join(tmp, "sd")
+        hour.control.day_end = end_day
+        t0 = time.perf_counter()
+        ranks = comm.spawn(sharded_rank, SHARDS, "gloo", [DEVICE] * SHARDS,
+                           args=(at, STORM_WINDOWS, (sh_dir, hour)),
+                           timeout=900)
+        out["spawn_s"] = time.perf_counter() - t0
+        fast = run_project_fast("synthetic", inp=copy.deepcopy(hour),
+                                end_day=end_day, float_dtype=torch.float32,
+                                device=DEVICE, outpath=sd_dir, verbose=False)
+        out["hour"] = compare_outputs(sh_dir, sd_dir)
+        out["hour"].update(wall_s=ranks[0]["hour"]["wall_s"],
+                           nfe=ranks[0]["hour"]["nfe"], fast_nfe=fast.bdf.nfe)
+        gap = float(np.abs(ranks[0]["hour"]["y"]
+                           - fast.y_np().astype(np.float64)).max())
+        log(f"  run_project_sharded over one hour: {ranks[0]['hour']['nfe']}"
+            f" NFE (run_project_fast {fast.bdf.nfe}), wall "
+            f"{ranks[0]['hour']['wall_s']:.2f} s, state gap {gap:.3e} m")
+        out["hour"]["max_dy_m"] = gap
+
+    k0 = ranks[0]["kernel"]
+    for r in ranks:
+        for name in ("kernel", "plain"):
+            a = r[name]
+            log(f"  rank {r['rank']} {name}: nsteps {a['nsteps']}, nfe "
+                f"{a['nfe']}, Newton iterations {a['newton_iters']}, "
+                f"launches {a['launches']}, set-up {a['setup_s']:.2f} s, "
+                f"first RHS + linearization + J·v {a['first_call_s']:.2f} s")
+            b = ranks[0][name]
+            check((a["nsteps"], a["nfe"], a["newton_iters"])
+                  == (b["nsteps"], b["nfe"], b["newton_iters"]),
+                  f"rank {r['rank']} {name}: steps/NFE/iterations differ")
+        n, it, m = r["kernel"]["launches"], r["kernel"]["newton_iters"], \
+            r["kernel"]["krylov_m"]
+        check(n["edge_coeff"] == it and n["edge_apply"] == m * it
+              and n["edge_flux"] == STORM_WINDOWS,
+              f"rank {r['rank']}: {n} for {it} Newton iterations in "
+              f"{STORM_WINDOWS} windows")
+        check(r["plain"]["launches"] == dict.fromkeys(n, 0),
+              f"rank {r['rank']}: the plain run launched a kernel")
+    gaps = []
+    for w in range(STORM_WINDOWS):
+        kp = float(np.abs(k0["ys"][w] - ranks[0]["plain"]["ys"][w]).max())
+        ks = float(np.abs(k0["ys"][w] - ref_y["f32"][w]).max())
+        sd = float(np.abs(ref_y["f32"][w] - ref_y["f64"][w]).max())
+        (n_x, s_x), (n_g, s_g) = (k0["collectives"][w][k] for k in (
+            "ppermute_round", "all_gather"))
+        log(f"  sharded, window {w}: wall {k0['wall_s'][w]:.3f} s (plain "
+            f"{ranks[0]['plain']['wall_s'][w]:.3f} s), rank 0: {n_x} halo "
+            f"exchanges {s_x:.3f} s, {n_g} gathers {s_g:.3f} s; max |dy| "
+            f"kernel-plain {kp:.3e} m, sharded-single f32 {ks:.3e} m, single "
+            f"f32-f64 {sd:.3e} m")
+        check(kp < BAR_DRIVER, f"sharded: kernel vs plain {kp:.3e} m "
+              f"(window {w})")
+        if sd < BAR_DRIVER:
+            check(ks < BAR_DRIVER, f"sharded vs single-device f32 {ks:.3e} "
+                  f"m (window {w})")
+        else:
+            log(f"    sharded-single not gated: single f32-f64 {sd:.3e} m")
+        gaps.append({"kernel-plain": kp, "sharded-single": ks,
+                     "single_f32-f64": sd})
+    nfe1 = refs["f32"].bdf.nfe
+    check(abs(k0["nfe"] - nfe1) <= 0.02 * nfe1,
+          f"sharded NFE {k0['nfe']} vs single-device {nfe1}")
+    log(f"  NFE: sharded {k0['nfe']}, single-device f32 {nfe1}; 4 ranks "
+        "time-sliced on one card say nothing of multi-GPU speed")
+    out.update(max_dy=gaps, nfe=k0["nfe"], single_nfe=nfe1,
+               newton_iters=k0["newton_iters"],
+               launches=[r["kernel"]["launches"] for r in ranks],
+               window_wall_s=k0["wall_s"], collectives=k0["collectives"],
+               plain_window_wall_s=ranks[0]["plain"]["wall_s"],
+               setup_s=k0["setup_s"], first_call_s=k0["first_call_s"])
+    n_gpu = torch.cuda.device_count()
+    if n_gpu >= 2:
+        # two ranks on two cards over NCCL, with the edge kernels
+        nccl = comm.spawn(sharded_rank, 2, "nccl", ["cuda:0", "cuda:1"],
+                          args=(at, STORM_WINDOWS, None, ("kernel",)),
+                          timeout=600)
+        a = nccl[0]["kernel"]
+        for w in range(STORM_WINDOWS):
+            ks = float(np.abs(a["ys"][w] - ref_y["f32"][w]).max())
+            log(f"  NCCL, 2 ranks, window {w}: sharded-single f32 "
+                f"{ks:.3e} m")
+            if gaps[w]["single_f32-f64"] < BAR_DRIVER:
+                check(ks < BAR_DRIVER, f"NCCL: {ks:.3e} m (window {w})")
+        check(nccl[1]["kernel"]["nfe"] == a["nfe"], "NCCL ranks' NFE differ")
+        out["nccl"] = {"nfe": a["nfe"], "window_wall_s": a["wall_s"]}
+    else:
+        log(f"  NCCL with more than one rank was not exercised: {n_gpu} GPU "
+            "on this host")
+        out["nccl"] = None
     return out
 
 
@@ -1576,6 +1910,8 @@ def main() -> int:
     summary["netcdf_32k"] = phase_netcdf(inp32, torch, mega, (edge, mega))
     log(f"phase 16: the refined mesh ({REFINE_LEVELS} levels of the 131k)")
     summary["refined"] = phase_refined(inp, torch, edge, bdf)
+    log(f"phase 17: the sharded driver ({SHARDS} ranks, 131k, gloo)")
+    summary["sharded_131k"] = phase_sharded(inp, torch, edge, smi)
 
     summary["script_s"] = time.perf_counter() - t_script
     log(f"script: {summary['script_s']:.1f} s")
@@ -1585,6 +1921,10 @@ def main() -> int:
                for src, rep in ((EDGE_SOURCE, REPLACES),
                                 (MEGA_SOURCE, MEGA_REPLACES))
                for name in rep]
+    for k in kernels:  # phase 17's main path: each rank's launches
+        if k["name"] in REPLACES:
+            k["sharded_launches"] = [
+                n[k["name"]] for n in summary["sharded_131k"]["launches"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

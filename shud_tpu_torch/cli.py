@@ -16,10 +16,6 @@ import argparse
 
 # flags of the JAX CLI the port refuses, with the reason
 REFUSED = {
-    "shards": "--shards (domain decomposition over devices) is not ported "
-              "yet (ROADMAP.md, queue: multi-GPU)",
-    "distributed": "--distributed (multi-host runs) is not ported yet "
-                   "(ROADMAP.md, queue: multi-GPU)",
     "compile_cache": "--compile-cache: the XLA compilation cache is a TPU "
                      "workaround the port does not carry (ROADMAP.md: TPU "
                      "workarounds are not ported); the CUDA kernels are "
@@ -79,7 +75,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", default=None, metavar="CKPT",
                    help="resume from a full binary checkpoint (.ckpt.npz)")
     p.add_argument("--shards", type=int, default=None, metavar="P",
-                   help="multi-device run (not ported: refused)")
+                   help="domain decomposition over P ranks of this host, "
+                        "one per visible GPU (NCCL), or P CPU ranks under "
+                        "--cpu (gloo); P a power of two")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace to DIR")
     p.add_argument("--compile-cache", default=None, metavar="DIR",
@@ -95,7 +93,9 @@ def _parser() -> argparse.ArgumentParser:
                         "DIR/cfg.calib.out for the external driver")
     p.add_argument("--distributed", nargs="?", const="", default=None,
                    metavar="COORD:PORT,NPROC,RANK",
-                   help="multi-host run (not ported: refused)")
+                   help="this process is one rank of a launched sharded "
+                        "job (bare: torchrun's env://); NCCL on the local "
+                        "rank's GPU, gloo under --cpu")
     return p
 
 
@@ -142,7 +142,11 @@ def main(argv=None):
     if args.cmaes_dir:
         calib = _apply_cmaes_dir(args.cmaes_dir, calib)
 
+    sharded = args.shards is not None or args.distributed is not None
+    if sharded:
+        _check_sharded(p, args, inp)
     per_window = args.per_window or args.dummy
+    sharded = sharded and not args.dummy  # -0 solves nothing, in every mode
     if inp is not None and (per_window or args.split):
         p.error("-p is supported with the default (fused) driver only")
     if args.split:
@@ -172,9 +176,13 @@ def main(argv=None):
 
     from shud_tpu_torch.utils.errors import ShudError
 
+    is_main = True  # the process that writes the profile and objective
     try:
         with prof:
-            if args.split:
+            if sharded:
+                is_main = _run_sharded(p, args, calib, float_dtype,
+                                       edge_kernel)
+            elif args.split:
                 from shud_tpu_torch.driver.uncoupled import run_project_split
 
                 run_project_split(
@@ -204,7 +212,7 @@ def main(argv=None):
     except ShudError as e:  # reference myexit: typed exit codes
         print(f"FATAL: {e}", flush=True)
         raise SystemExit(e.code)
-    if args.profile:
+    if args.profile and is_main:
         import os
 
         os.makedirs(args.profile, exist_ok=True)
@@ -212,9 +220,72 @@ def main(argv=None):
         prof.export_chrome_trace(trace)
         if not args.quiet:
             print(f"profile: {trace}")
-    if args.cmaes_dir:
+    if args.cmaes_dir and is_main:
         _write_cmaes_objective(args.cmaes_dir, args.project, args.base,
                                args.output, calib, quiet=args.quiet)
+
+
+def _check_sharded(p, args, inp) -> None:
+    """The JAX CLI's refusals under ``--shards`` (``shud_tpu/cli.py:
+    141-151``), and the port's own for the flags of the single-device
+    fused driver."""
+    if inp is not None:
+        p.error("-p is supported with the default (fused) driver only")
+    if args.split:
+        p.error("-g (operator-split) is not supported with --shards; "
+                "run the split driver single-chip")
+    if args.per_window:
+        p.error("--per-window is not supported with --shards (the "
+                "sharded driver is interval-batched by design)")
+    if args.mega is not None:
+        p.error("--mega/--no-mega: the sharded driver runs the eager RHS "
+                "with the edge kernels per shard (--pallas/--no-pallas)")
+    n = args.shards
+    if n is not None and (n < 1 or n & (n - 1)):
+        p.error(f"--shards {n}: P must be a power of two (recursive "
+                "coordinate bisection)")
+    if args.profile and args.distributed is None:
+        p.error("--profile with --shards: the ranks are processes of their "
+                "own; profile a rank with --distributed")
+
+
+def _run_sharded(p, args, calib, float_dtype, edge_kernel) -> bool:
+    """``--shards P`` (P ranks of this host, the project loaded once here
+    and handed to them) or ``--distributed`` (this process is one rank).
+    Returns whether this process is rank 0 (or the parent of the
+    ranks)."""
+    from shud_tpu_torch.parallel import comm, runtime
+
+    kw = dict(base=args.base, end_day=args.end_day, verbose=not args.quiet,
+              outpath=args.output, float_dtype=float_dtype,
+              edge_kernel=edge_kernel, resume=args.resume, calib=calib)
+    if args.distributed is not None:
+        coord = nproc = rank = None
+        if args.distributed:
+            coord, nproc, rank = args.distributed.rsplit(",", 2)
+        group = comm.init_distributed(coord, nproc, rank,
+                                      device="cpu" if args.cpu else None)
+        if args.shards is not None and args.shards != group.size:
+            p.error(f"--shards {args.shards} with a job of {group.size} "
+                    "rank(s)")
+        if not args.quiet and group.is_main:
+            print(f"torch.distributed: {group.size} ranks, {group.backend}")
+        runtime.run_project_sharded(args.project, group=group, **kw)
+        return group.is_main
+    n = args.shards
+    if args.cpu:
+        backend, devices = "gloo", ["cpu"] * n
+    else:
+        try:
+            devices = comm.cuda_devices(n)
+        except ValueError as e:
+            p.error(str(e))
+        backend = "nccl"
+    from shud_tpu_torch.io.project import load_project
+
+    inp = load_project(args.project, base=args.base)
+    runtime.run_ranks(args.project, n, backend, devices, inp=inp, **kw)
+    return True
 
 
 def _apply_cmaes_dir(dir_cmaes: str, base_calib):

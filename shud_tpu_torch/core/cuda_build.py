@@ -6,11 +6,14 @@ under ``build/``, named by the hash of all the sources and the flags, so
 an unchanged tree reuses it.  The library has a plain C interface and is
 loaded with ctypes with the argument types of every entry point set
 (``load_library``).  Nothing here runs when a module is imported.
+Processes that load it at once (the ranks of a sharded run) take turns
+under a file lock, so one builds and the others find the library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -88,7 +91,10 @@ def load_library() -> ctypes.CDLL:
         h.update(src.name.encode() + src.read_bytes())
     out = _BUILD_DIR / f"libshud_kernels_{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    log = "" if out.exists() else _build(out)
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        log = "" if out.exists() else _build(out)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.shud_edge_flux.argtypes = [p] * 16 + [i, i, p]

@@ -94,8 +94,9 @@ def _fixed_width_lists(targets: np.ndarray, n_targets: int, pad_idx: int):
 
 def gather_sum(values: torch.Tensor, lists: torch.Tensor) -> torch.Tensor:
     """``segment_sum`` through a fixed-width gather list: the padded slots
-    point at an appended zero, and each row is summed in a fixed order."""
-    padded = torch.cat([values, values.new_zeros(1)])
+    point at an appended zero, and each row is summed in a fixed order.
+    *values* may have trailing dimensions (summed per column)."""
+    padded = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
     return padded[lists].sum(dim=1)
 
 

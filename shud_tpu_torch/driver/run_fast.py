@@ -28,12 +28,17 @@ class IntervalWriter:
     """Binds fused-interval means to Print_Ctrl-format files, mirrored into
     CF/UGRID NetCDF-4 files (``.ele.nc``, ``.riv.nc``, ``.lak.nc``) under
     ``OUTPUT_MODE NETCDF|BOTH`` (NETCDF alone turns the binary files
-    off)."""
+    off).
 
-    def __init__(self, sim: FusedSimulation):
+    ``io_enabled=False`` runs the whole channel registration (so the output
+    ``interval`` is the same) but opens no file: the ranks other than 0 of
+    a sharded run (``parallel/runtime.py``), whose files rank 0 writes."""
+
+    def __init__(self, sim: FusedSimulation, io_enabled: bool = True):
         cs = sim.inp.control
         paths = sim.inp.paths
         md = sim.md
+        self.io_enabled = io_enabled
         netcdf = cs.output_mode in ("NETCDF", "BOTH")
         if netcdf:
             try:
@@ -44,7 +49,8 @@ class IntervalWriter:
                     f"OUTPUT_MODE {cs.output_mode} writes NetCDF-4 through "
                     "h5py, which is not installed; use OUTPUT_MODE LEGACY"
                 ) from e
-        os.makedirs(paths.outpath, exist_ok=True)
+        if io_enabled:
+            os.makedirs(paths.outpath, exist_ok=True)
         start = sim.inp.forc.start_yyyymmdd
         b, a = bool(cs.binary), bool(cs.ascii)
         self.channels = []
@@ -64,6 +70,8 @@ class IntervalWriter:
                         f"{name} has {dt} != {self.interval} "
                         "(use the per-window driver instead)"
                     )
+                if not io_enabled:
+                    return
                 mk = "lake" if riv == "lake" else ("riv" if riv else "ele")
                 sel = np.where(masks[mk])[0]
                 pc = PrintCtrl(
@@ -73,7 +81,7 @@ class IntervalWriter:
                 self.channels.append((pc, key, is_flux, riv))
 
         self.nc = self.nc_riv = self.nc_lake = None
-        if netcdf:
+        if netcdf and io_enabled:
             from shud_tpu_torch.io.ncoutput import (
                 UgridSink, read_ncoutput_cfg)
 

@@ -1,7 +1,9 @@
 """Adaptive implicit multistep solver (the CVODE replacement) on tensors.
 
 The counterpart of ``shud_tpu/solver/bdf.py`` with ``solver/tree.py``
-folded in (one chip: the state is one flat tensor).  Same method, same
+folded in: the state is one flat tensor (in a sharded run, each rank's
+share of it, whose dot products and norms ``solve_to(..., group=)`` makes
+global).  Same method, same
 arithmetic, same NFE accounting:
 
 * variable-step, variable-order BDF(1,2,3) with history carried across
@@ -97,16 +99,28 @@ def bdf_init(t0, y0: torch.Tensor, cfg: SolverConfig, quad0=None) -> BDFState:
 _BREAKDOWN = 16.0
 
 
-def _dot(a, b):
-    return torch.dot(a, b)
+def _dot(a, b, group=None):
+    """a·b.  With a rank's *group* (``parallel.sharded.StateGroup``: the
+    state is this rank's cell and reach blocks, then the replicated lakes)
+    the blocks' partial sums are added over the ranks in rank order
+    (``comm.psum``), and the lakes count once."""
+    if group is None:
+        return torch.dot(a, b)
+    n = group.n_blocks
+    return group.psum(torch.dot(a[:n], b[:n])) + torch.dot(a[n:], b[n:])
 
 
-def _wrms(x, ewt):
-    """Weighted RMS norm: sqrt(mean((x*ewt)^2)), a 0-d tensor."""
-    return torch.sqrt(torch.sum((x * ewt) ** 2) / x.numel())
+def _wrms(x, ewt, group=None):
+    """Weighted RMS norm: sqrt(mean((x*ewt)^2)), a 0-d tensor.  With a
+    *group* the sum is ``_dot``'s and the mean is over the global padded
+    size (the JAX package's ``tsize`` of the sharded state)."""
+    if group is None:
+        return torch.sqrt(torch.sum((x * ewt) ** 2) / x.numel())
+    xe = x * ewt
+    return torch.sqrt(_dot(xe, xe, group) / group.size)
 
 
-def _gmres(matvec, b, m):
+def _gmres(matvec, b, m, group=None):
     """Single-cycle matrix-free GMRES(m), modified Gram-Schmidt with
     incremental Givens rotations, x0 = 0.  The scalars stay 0-d tensors on
     the device (no host round trip inside the Krylov loop).
@@ -118,7 +132,7 @@ def _gmres(matvec, b, m):
     dy = 0).  Such a remainder (below ``_BREAKDOWN`` eps of A·v) counts
     as zero, as an exactly cancelling one does, so the Krylov solve stops
     there; elsewhere the iteration is the JAX package's, bit for bit."""
-    beta = torch.sqrt(_dot(b, b))
+    beta = torch.sqrt(_dot(b, b, group))
     safe = torch.where(beta > 0, beta, 1.0)
     vs = [b / safe]
     r_cols = []
@@ -128,13 +142,13 @@ def _gmres(matvec, b, m):
     tol = _BREAKDOWN * torch.finfo(b.dtype).eps
     for j in range(m):
         w = matvec(vs[j])
-        w0 = torch.sqrt(_dot(w, w))
+        w0 = torch.sqrt(_dot(w, w, group))
         hcol = []
         for i in range(j + 1):
-            hij = _dot(vs[i], w)
+            hij = _dot(vs[i], w, group)
             hcol.append(hij)
             w = -hij * vs[i] + w
-        wnorm = torch.sqrt(_dot(w, w))
+        wnorm = torch.sqrt(_dot(w, w, group))
         wnorm = torch.where(wnorm > tol * w0, wnorm, 0.0)
         wsafe = torch.where(wnorm > 0, wnorm, 1.0)
         vs.append(w / wsafe)
@@ -168,7 +182,8 @@ def _gmres(matvec, b, m):
     return torch.where(beta > 0, x, 0.0)
 
 
-def _newton(linearize, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
+def _newton(linearize, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig,
+            group=None):
     """Solve y = c0 + bh·f(t_new, y) by Newton-GMRES with exact JVPs:
     each iteration linearizes f once at its iterate (``linearize(t, y) ->
     (f(t, y), v -> J·v)``).  Returns (y, converged, nfe_used)."""
@@ -187,8 +202,8 @@ def _newton(linearize, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
         def matvec(v, jvp=jvp):
             return v - bh_f * jvp(v)
 
-        dy = _gmres(matvec, -res, cfg.krylov_m)
-        dnorm = _fetch(_wrms(dy, ewt), dt)
+        dy = _gmres(matvec, -res, cfg.krylov_m, group)
+        dnorm = _fetch(_wrms(dy, ewt, group), dt)
         y = y_lin + dy
         it += 1
         newton_iters += 1
@@ -199,7 +214,7 @@ def _newton(linearize, t_new, y_guess, c0, bh, ewt, cfg: SolverConfig):
 
 
 def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
-             quad_fn=None, linearize=None) -> BDFState:
+             quad_fn=None, linearize=None, group=None) -> BDFState:
     """Advance the ODE to ``tout`` — one ``CVode(CV_NORMAL)`` equivalent.
     ``f(t, y, params)`` returns dy/dt.
 
@@ -211,7 +226,11 @@ def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
     each Newton iteration calls once, as the JAX solver calls
     ``jax.linearize``.  By default f once and ``torch.func.jvp`` of f for
     each vector (which runs f's primal again); a hook with a hand tangent
-    (``core/mega.linearize_mega``) runs the primal once an iteration."""
+    (``core/mega.linearize_mega``) runs the primal once an iteration.
+
+    *group*: a rank's share of a sharded state (``parallel.sharded``); the
+    dot products and norms are then global (``_dot``), so every rank takes
+    the same steps, Newton iterations and NFE."""
     dt = np_dtype(state.y.dtype)
     tout = dt(tout)
 
@@ -229,11 +248,11 @@ def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
     nsteps0 = state.nsteps
     s = state
     while s.t < tout - 1e-9 and s.nsteps - nsteps0 < cfg.max_steps:
-        s = _step(rhs, lin, s, tout, params, cfg, quad_fn, dt)
+        s = _step(rhs, lin, s, tout, params, cfg, quad_fn, dt, group)
     return s
 
 
-def _step(rhs, lin, s: BDFState, tout, params, cfg, quad_fn, dt):
+def _step(rhs, lin, s: BDFState, tout, params, cfg, quad_fn, dt, group):
     ewt = 1.0 / (cfg.rtol * torch.abs(s.y) + cfg.atol)
     h = np.minimum(np.minimum(s.h, dt(cfg.h_max)), tout - s.t)
     h = np.maximum(h, dt(cfg.h_min))
@@ -306,10 +325,11 @@ def _step(rhs, lin, s: BDFState, tout, params, cfg, quad_fn, dt):
         bh = dt(1.0) / g0
 
     t_new = s.t + h
-    y_new, conv, nfe_n = _newton(lin, t_new, y_pred, c0, bh, ewt, cfg)
+    y_new, conv, nfe_n = _newton(lin, t_new, y_pred, c0, bh, ewt, cfg,
+                                 group)
 
     # predictor-corrector difference estimates the LTE at this order
-    err = _fetch(_wrms(y_new - y_pred, ewt) * 0.5, dt)
+    err = _fetch(_wrms(y_new - y_pred, ewt, group) * 0.5, dt)
     accept = conv and err <= 1.0
     at_hmin = h <= cfg.h_min * (1 + 1e-9)
     accept = accept or (at_hmin and conv)

@@ -29,6 +29,8 @@ from shud_tpu_torch import cli  # noqa: E402
 from shud_tpu_torch.driver import run as trun  # noqa: E402
 from shud_tpu_torch.driver import run_fast as trf  # noqa: E402
 from shud_tpu_torch.driver import uncoupled as tun  # noqa: E402
+from shud_tpu_torch.parallel import comm as tcomm  # noqa: E402
+from shud_tpu_torch.parallel import runtime as truntime  # noqa: E402
 from torch_variants import make_project  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -264,6 +266,9 @@ def drivers(monkeypatch):
     monkeypatch.setattr(trf, "run_project_fast", record("fast"))
     monkeypatch.setattr(trun, "run_project", record("per_window"))
     monkeypatch.setattr(tun, "run_project_split", record("split"))
+    monkeypatch.setattr(truntime, "run_ranks", record("shards"))
+    monkeypatch.setattr(truntime, "run_project_sharded",
+                        record("distributed"))
     return calls
 
 
@@ -397,9 +402,17 @@ def test_cli_shud_error_exit_code(monkeypatch):
     (["-g", "--mega", "prj"], "--mega/--no-mega: not supported with -g"),
     (["--split", "--no-pallas", "--per-window", "prj"],
      "--pallas/--no-pallas, --per-window: not supported with -g"),
-    (["--shards", "2", "prj"], "multi-GPU"),
-    (["--distributed", "prj"], "multi-GPU"),
-    (["--distributed=host:1234,2,0", "prj"], "multi-GPU"),
+    # the JAX CLI's refusals under --shards (shud_tpu/cli.py:141-151)
+    (["--shards", "2", "-g", "prj"],
+     "-g (operator-split) is not supported with --shards"),
+    (["--shards", "2", "--per-window", "prj"],
+     "--per-window is not supported with --shards"),
+    (["--distributed", "--split", "prj"],
+     "-g (operator-split) is not supported with --shards"),
+    # more ranks than visible GPUs fails fast, naming the count
+    (["--shards", "64", "prj"], "CUDA device(s) are visible"),
+    (["--shards", "3", "--cpu", "prj"], "P must be a power of two"),
+    (["--shards", "2", "--mega", "prj"], "--mega/--no-mega: the sharded"),
     (["--compile-cache", "dir", "prj"], "TPU workaround"),
     (["--per-window", "--mega", "prj"], "fused driver"),
     (["--per-window", "--resume", "ck", "prj"], "fused driver"),
@@ -414,13 +427,59 @@ def test_cli_refused(drivers, capsys, argv, message):
 
 
 def test_cli_module_help():
-    """``python -m shud_tpu_torch -h`` exits 0 and a refused flag
-    (``--shards 2``) exits non-zero, in a fresh process."""
+    """``python -m shud_tpu_torch -h`` exits 0 and a refused combination
+    (``--shards 2 -g``) exits non-zero, in a fresh process."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     ok = subprocess.run([sys.executable, "-m", "shud_tpu_torch", "-h"],
                         capture_output=True, text=True, cwd=ROOT, env=env)
     assert ok.returncode == 0 and "--per-window" in ok.stdout
     bad = subprocess.run([sys.executable, "-m", "shud_tpu_torch", "--shards",
-                          "2", "prj"], capture_output=True, text=True,
+                          "2", "-g", "prj"], capture_output=True, text=True,
                          cwd=ROOT, env=env)
-    assert bad.returncode != 0 and "multi-GPU" in bad.stderr
+    assert bad.returncode != 0 and "not supported with --shards" in bad.stderr
+
+
+def test_cli_shards_route(drivers, monkeypatch):
+    """``--shards 2 --cpu`` loads the project once and hands it to two gloo
+    ranks on the CPU; ``-0`` under --shards is the IO-only run, as in
+    JAX's CLI."""
+    from shud_tpu_torch.io import project
+
+    monkeypatch.setattr(project, "load_project",
+                        lambda prj, base=".": ("loaded", prj, base))
+    cli.main(["--shards", "2", "--cpu", "--f32", "--no-pallas", "-e", "0.5",
+              "-o", "out", "-b", "base", "--resume", "ck.npz", "-q", "prj"])
+    (name, args, kw), = drivers
+    assert name == "shards"
+    assert args == ("prj", 2, "gloo", ["cpu", "cpu"])
+    assert kw == dict(inp=("loaded", "prj", "base"), base="base",
+                      end_day=0.5, verbose=False, outpath="out",
+                      float_dtype=torch.float32, edge_kernel=False,
+                      resume="ck.npz", calib=None)
+    drivers.clear()
+    cli.main(["--shards", "2", "-0", "prj"])
+    (name, _, kw), = drivers
+    assert name == "per_window" and kw["dummy"] is True
+
+
+def test_cli_distributed_route(drivers, monkeypatch):
+    """``--distributed host:port,NPROC,RANK`` makes this process one rank
+    (gloo under --cpu) and runs the sharded driver; bare --distributed
+    reads torchrun's environment."""
+    calls = []
+
+    def init(coord, nproc, rank, device=None):
+        calls.append((coord, nproc, rank, device))
+        return tcomm.Group(0, 2, "cpu", "gloo")
+
+    monkeypatch.setattr(tcomm, "init_distributed", init)
+    cli.main(["--distributed=host:1234,2,0", "--cpu", "-q", "prj"])
+    cli.main(["--distributed", "--cpu", "-q", "prj"])
+    assert calls == [("host:1234", "2", "0", "cpu"), (None, None, None,
+                                                      "cpu")]
+    assert [(n, a) for n, a, _ in drivers] == [("distributed", ("prj",))] * 2
+    kw = drivers[0][2]
+    assert kw["group"].size == 2 and kw["float_dtype"] == torch.float64
+    with pytest.raises(SystemExit):
+        cli.main(["--distributed=host:1234,2,0", "--shards", "4", "--cpu",
+                  "prj"])

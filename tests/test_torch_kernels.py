@@ -9,7 +9,9 @@ dY 2e-6.  Mega trio (plain, lake and branched meshes, both boundary
 modes): dY and every diagnostic field scaled 2e-6, J·v 1e-5, each
 output bitwise equal across two calls and to its plain version; each
 mega kernel is one device launch per call and refuses a grid the card
-cannot hold.
+cannot hold.  The sharded RHS (2 gloo ranks on the card, 32,768 cells):
+dY through edge_flux bitwise its plain path's, the coefficient path's dY
+and the hand J·v (edge_coeff, edge_apply) within 1e-6 scaled.
 """
 
 import numpy as np
@@ -322,3 +324,33 @@ def test_mega_launch_refused_when_not_resident(mega_case, monkeypatch, name):
                                                  blocks_per_sm=1))
     with pytest.raises(ValueError, match="resident"):
         call(dataclasses.replace(t))
+
+
+def test_sharded_rhs_with_kernels():
+    """Two ranks on one card over gloo, at 32,768 cells: one sharded RHS
+    and one hand J·v with the edge kernels against the same on their plain
+    versions (``parallel/sharded.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.parallel import comm
+    from shud_tpu_torch.parallel.partition import build_sharded_mesh
+    from shud_tpu_torch.utils.synthetic import make_synthetic_project
+    from torch_sharded_ranks import kernels_rank
+    from torch_variants import random_inputs
+
+    md = build_mesh(make_synthetic_project(128, 128))
+    fs, y = random_inputs(md, seed=4, dry_every=7)
+    v = np.random.default_rng(5).standard_normal(y.shape)
+    sm = build_sharded_mesh(md, 2)
+    ranks = comm.spawn(kernels_rank, 2, "gloo", ["cuda:0"] * 2,
+                       args=(sm, fs, y, v), timeout=600)
+    for r in ranks:
+        k, p = r["kernel"], r["plain"]
+        np.testing.assert_array_equal(k["dy"], p["dy"])
+        for key in ("dy_lin", "jv"):
+            ref, got = p[key].astype(np.float64), k[key].astype(np.float64)
+            assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), key
+        assert k["launches"] == {"edge_flux": 1, "edge_coeff": 1,
+                                 "edge_apply": 1}
+        assert p["launches"] == dict.fromkeys(k["launches"], 0)
