@@ -88,7 +88,16 @@ and the script exits nonzero; nothing falls back to the CPU):
     and per rank edge_coeff once per Newton iteration, edge_apply
     krylov_m times and edge_flux once a window; run_project_sharded over
     one simulated hour writes run_project_fast's file set, the same
-    headers, payloads within 1e-4; NCCL with 2 ranks where 2 GPUs exist.
+    headers, payloads within 1e-4; NCCL with 2 ranks where 2 GPUs exist;
+18. the autocalibration tools (shud_tpu_torch.tools) at 32k, a twin
+    experiment over 3 days in f32: the objective at the truth scores NSE
+    >= 1 - 1e-9; the search (4 candidates from the default calibration)
+    with the mega trio's launch counts (mega_rhs = Newton iterations,
+    mega_jvp = krylov_m times, mega_diag = windows, no edge kernel) and
+    the card's memory after each candidate within 1 MiB of the first's;
+    an NFE budget below day 0's aborts after day 1 with 5.0; the
+    tournament over {truth, default} writes the truth; the tool's -h in a
+    fresh process.  Set-up and wall per candidate-day reported.
 The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -165,6 +174,10 @@ TRUTH_H, TRUTH_SELF, TRUTH_BAR = 0.5, 1e-4, 5e-4
 REFINE_LEVELS = 2
 # the sharded driver's ranks on the one card (gloo, host staging)
 SHARDS = 4
+# the calibration's twin experiment: the truth it recovers, the simulated
+# days of a candidate, and the search's generations and population
+CALIB_TRUTH = {"geol_ksath": 0.3, "lc_rough": 2.0}
+CALIB_DAYS, CALIB_GENS, CALIB_POP = 3, 1, 4
 
 # written before each call of a cold-L2 time: above the H100's 50 MB L2
 FLUSH_BYTES = 64 << 20
@@ -1741,6 +1754,152 @@ def phase_sharded(inp, torch, edge, smi: str) -> dict:
     return out
 
 
+def phase_calib(torch, kernels, bdf, smi: str) -> dict:
+    """Phase 18: the port's autocalibration (shud_tpu_torch.tools) on the
+    mega-32k mesh, a twin experiment in float32: the observations are the
+    mega path's daily outlet discharge over CALIB_DAYS at CALIB_TRUTH.  The
+    objective at the truth scores NSE >= 1 - 1e-9 (the mega path is bitwise
+    repeatable); the search (--log, CALIB_GENS x CALIB_POP candidates from
+    the default calibration) with every launch count set to 0 just before
+    and read just after: mega_rhs = Newton iterations, mega_jvp = krylov_m
+    x Newton iterations, mega_diag = windows, no edge kernel; the card's
+    allocated memory after each candidate within 1 MiB of the first's; a
+    budget below day 0's NFE in one-day chunks aborts after day 1 with
+    the penalty; the tournament over {truth, default} writes the truth;
+    one storm window of the truth's candidate under the profiler;
+    ``python -m shud_tpu_torch.tools.autocalibrate -h`` exits 0."""
+    import numpy as np
+
+    from shud_tpu_torch.io.project import read_calib
+    from shud_tpu_torch.tools import autocalibrate as tac
+    from shud_tpu_torch.tools import calib_tournament as ttour
+    from shud_tpu_torch.utils.calibrate import (calib_from_vector,
+                                                run_with_calib)
+
+    t_phase = time.perf_counter()
+    names = list(CALIB_TRUTH)
+    truth = np.array(list(CALIB_TRUTH.values()))
+    inp = storm_project(*MEGA_MESH, end_day=CALIB_DAYS)
+    base = copy.deepcopy(inp.calib)
+    default = [getattr(base, n) for n in names]
+
+    # the observations: the mega path's daily discharge at the truth, day 0
+    # apart (its NFE sets the abort's budget)
+    sim = run_with_calib("synthetic", ".", calib_from_vector(
+        names, truth, base=base), CALIB_DAYS, float_dtype=torch.float32,
+        inp=inp, device=DEVICE)
+    check(sim.mega is not None, "calibration mesh not on the mega path")
+    wpd = int(round(1440.0 / inp.control.solver_step))
+    day0 = tac.run_daily(sim, 1, 1)
+    nfe_day0 = sim.bdf.nfe
+    rest = tac.run_daily(sim, CALIB_DAYS - 1, CALIB_DAYS - 1)
+    del sim
+    obs_t = (np.arange(CALIB_DAYS) + 0.5) * 1440.0
+    obs_q = np.concatenate([day0.q, rest.q])
+    log(f"  {smi}; observations at {CALIB_TRUTH}: {obs_q.tolist()} m3/day; "
+        f"day 0 nfe {nfe_day0}")
+    check(bool(np.isfinite(obs_q).all()) and obs_q.std() > 0,
+          "degenerate observations")
+
+    parse = tac.build_parser().parse_args
+    common = ["synthetic", "--f32", "--params", ",".join(names), "--days",
+              str(CALIB_DAYS), "--chunk-days", str(CALIB_DAYS)]
+    out = {"obs_m3_day": obs_q.tolist(), "nfe_day0": nfe_day0}
+    inp.calib = copy.deepcopy(base)
+    truth_obj = tac.Objective(parse(common), inp, obs_t, obs_q)
+    out["truth_nse"] = -float(truth_obj.evaluate(truth))
+    log(f"  the objective at the truth: NSE {out['truth_nse']!r}")
+    check(out["truth_nse"] >= 1 - 1e-9, f"truth scores {out['truth_nse']}")
+
+    with tempfile.TemporaryDirectory(prefix="shud_calib_") as outdir:
+        inp.calib = copy.deepcopy(base)
+        args = parse(common + ["--log", "--gens", str(CALIB_GENS),
+                               "--popsize", str(CALIB_POP), "-o", outdir])
+        for k in kernels:
+            k.reset_launch_counts()
+        iters0 = bdf.newton_iters
+        t0 = time.perf_counter()
+        res = tac.calibrate(args, inp, obs_t, obs_q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
+        iters = bdf.newton_iters - iters0
+        cands = res.candidates
+        windows = sum(c.days for c in cands) * wpd
+        krylov_m = bdf.SolverConfig().krylov_m
+        log(f"  search: {len(cands)} candidates in {wall:.2f} s, "
+            f"{iters} Newton iterations, {windows} windows; launches "
+            f"{counts}")
+        check(len(cands) == CALIB_GENS * CALIB_POP, "wrong candidate count")
+        check(counts["mega_rhs"] == iters
+              and counts["mega_jvp"] == krylov_m * iters
+              and counts["mega_diag"] == windows,
+              f"calibration: {counts} for {iters} Newton iterations in "
+              f"{windows} windows")
+        for k in ("edge_flux", "edge_coeff", "edge_apply"):
+            check(counts[k] == 0, f"{k} launched in the calibration")
+        mem = [c.device_bytes for c in cands]
+        check(all(abs(m - mem[0]) <= 1 << 20 for m in mem),
+              f"device memory grows across candidates: {mem}")
+        out.update(
+            search_wall_s=wall, launches=counts, newton_iters=iters,
+            windows=windows, best_nse=res.score, best_x=res.x.tolist(),
+            device_bytes=mem,
+            candidates=[dict(x=c.x.tolist(), nse=-c.f, nfe=c.nfe,
+                             setup_s=c.setup_s, run_s=c.run_s,
+                             s_per_day=c.run_s / c.days) for c in cands])
+        check(os.path.isfile(res.path), "no .cfg.calib.opt written")
+        log("  " + tac.cost_summary(cands))
+        log(f"  best NSE {res.score!r} at {res.x.tolist()}; set-up per "
+            f"candidate {[round(c.setup_s, 3) for c in cands]} s, wall per "
+            f"candidate-day {[round(c.run_s / c.days, 3) for c in cands]} s, "
+            f"NFE {[c.nfe for c in cands]}; device bytes {mem}")
+
+        # the NFE budget: below day 0's, one-day chunks
+        inp.calib = copy.deepcopy(base)
+        abort = tac.Objective(parse(common + [
+            "--chunk-days", "1", "--nfe-budget-per-day",
+            str(nfe_day0 - 1)]), inp, obs_t, obs_q)
+        f = abort.evaluate(truth)
+        c = abort.candidates[0]
+        check(f == tac.ABORT_PENALTY and c.aborted and c.days == 1,
+              f"budget {nfe_day0 - 1}: f {f}, {c.days} days")
+        out["abort"] = dict(f=f, days=c.days, nfe=c.nfe)
+
+        # the tournament over {truth, default}
+        inp.calib = copy.deepcopy(base)
+        targs = ttour.build_parser().parse_args([
+            "synthetic", "--days", str(CALIB_DAYS), "--warmup", "0",
+            "--chunk-days", str(CALIB_DAYS), "--params", ",".join(names),
+            "--cand", "default:" + ",".join(map(repr, default)),
+            "--cand", "truth:" + ",".join(map(repr, truth.tolist()))])
+        entries, path = ttour.tournament(targs, inp, obs_t, obs_q, outdir)
+        got = read_calib(path)
+        check(entries[0].label == "truth"
+              and [getattr(got, n) for n in names] == truth.tolist(),
+              f"tournament: {[(e.label, e.nse) for e in entries]}, wrote "
+              f"{[getattr(got, n) for n in names]}")
+        out["tournament"] = {e.label: dict(nse=e.nse, aet_mm=e.aet_mm,
+                                           p_mm=e.p_mm, nfe=e.nfe,
+                                           wall_s=e.wall_s)
+                             for e in entries}
+
+    # a candidate's storm window under the profiler (reported)
+    inp.calib = calib_from_vector(names, truth, base=base)
+    out["profile"] = phase_profile(inp, torch)
+
+    r = subprocess.run([sys.executable, "-m",
+                        "shud_tpu_torch.tools.autocalibrate", "-h"],
+                       capture_output=True, text=True, cwd=ROOT, timeout=300)
+    log(f"  python -m shud_tpu_torch.tools.autocalibrate -h: exit "
+        f"{r.returncode}")
+    check(r.returncode == 0 and "--cpu" in r.stdout,
+          f"autocalibrate -h: exit {r.returncode}, {r.stderr[-500:]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 18: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-minutes", type=float, default=1440.0,
@@ -1912,6 +2071,9 @@ def main() -> int:
     summary["refined"] = phase_refined(inp, torch, edge, bdf)
     log(f"phase 17: the sharded driver ({SHARDS} ranks, 131k, gloo)")
     summary["sharded_131k"] = phase_sharded(inp, torch, edge, smi)
+    log(f"phase 18: autocalibration on the mega path ({MEGA_MESH[0]}x"
+        f"{MEGA_MESH[1]} mesh, f32)")
+    summary["calib_32k"] = phase_calib(torch, (edge, mega), bdf, smi)
 
     summary["script_s"] = time.perf_counter() - t_script
     log(f"script: {summary['script_s']:.1f} s")
@@ -1921,10 +2083,12 @@ def main() -> int:
                for src, rep in ((EDGE_SOURCE, REPLACES),
                                 (MEGA_SOURCE, MEGA_REPLACES))
                for name in rep]
-    for k in kernels:  # phase 17's main path: each rank's launches
-        if k["name"] in REPLACES:
+    for k in kernels:  # the later main paths' launches
+        if k["name"] in REPLACES:  # phase 17's, per rank
             k["sharded_launches"] = [
                 n[k["name"]] for n in summary["sharded_131k"]["launches"]]
+        else:  # phase 18's main path: the search's launches
+            k["calib_launches"] = summary["calib_32k"]["launches"][k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

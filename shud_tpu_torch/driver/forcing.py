@@ -115,7 +115,7 @@ def rebuild_cal(fr: ForcingRuntime, calib) -> ForcingRuntime:
     The expensive parts of a ForcingRuntime (merged station tables, TSR
     solar-sample precompute over the whole forcing axis) do not depend on
     calibration — autocalibration loops reuse them across candidates and
-    only swap the scalars (tools/autocalibrate.py)."""
+    only swap the scalars (shud_tpu_torch/tools/autocalibrate.py)."""
     return dataclasses.replace(fr, cal=calib_scalars(calib))
 
 
