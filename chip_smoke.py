@@ -9,7 +9,10 @@ path at 32,768 cells for one simulated day (one kernel call per RHS, J·v
 and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072 cells
 over the storm's first six hours (eager RHS with the edge trio,
 csrc/edge_flux.cu, linearized once per Newton iteration by
-rhs.linearize).  Phases (any failed check raises
+rhs.linearize); on both each window's solve replays a captured CUDA graph
+(solver/graph.py, csrc/graph.cu).  Launch counts are the kernels' own
+device counters (core/launches.py), which count a captured launch each
+time it runs.  Phases (any failed check raises
 and the script exits nonzero; nothing falls back to the CPU):
  1. the card (nvidia-smi name and power limit), exit if CUDA is absent;
  2. build both CUDA sources (one nvcc each, in parallel); registers and
@@ -39,8 +42,10 @@ and the script exits nonzero; nothing falls back to the CPU):
     krylov_m times and edge_flux once a window (the diagnostics; the run
     has no water-balance quadrature), no mega kernel; at 32k the mega
     trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
-    krylov_m times and mega_diag once a window; output file set and
-    finite values;
+    krylov_m times and mega_diag once a window (the Newton iterations
+    read from the device carry, plus the two of the captured window's
+    warm-up); every window captured, host syncs = graph launches; output
+    file set and finite values;
  8. 6 storm windows on each kernel path beside its references, window by
     window, NFE within 2%: at 131k the plain f32 path, state within
     2e-5 m; at 32k the mega path on the kernels' plain versions, state
@@ -58,9 +63,9 @@ and the script exits nonzero; nothing falls back to the CPU):
     storm windows beside FusedSimulation: within 2e-5 m, NFE within 2%;
 11. the command line in fresh processes: python -m shud_tpu_torch -h
     exits 0, -g --f32 exits nonzero (-g runs float64 only);
-12. one storm window of each path under torch.profiler: device busy time,
-    idle share, launches per NFE, mega kernel launches per NFE (reported,
-    not checked);
+12. one storm window of each path under torch.profiler, captured and
+    eager: device busy time, idle share, launches per NFE, mega kernel
+    launches per NFE, the host's launch calls (reported, not checked);
 13. the operator-split driver (run_project_split, -g, float64) over the 6
     storm windows at 32k and on the lake mesh against the fused float64
     eager driver: every block within 5e-3 m (the lake stage 5e-2 m); the
@@ -97,7 +102,13 @@ and the script exits nonzero; nothing falls back to the CPU):
     the card's memory after each candidate within 1 MiB of the first's;
     an NFE budget below day 0's aborts after day 1 with 5.0; the
     tournament over {truth, default} writes the truth; the tool's -h in a
-    fresh process.  Set-up and wall per candidate-day reported.
+    fresh process.  Set-up and wall per candidate-day reported;
+19. the captured window against the eager loop
+    (FusedSimulation.create(captured=False)) over phase 7's spans, window
+    by window: bitwise equal states, equal steps, NFE and Newton
+    iterations after every window; host syncs, graph launches and steps
+    per window, warm-up, capture and instantiation seconds, each path's
+    wall.
 The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -105,6 +116,7 @@ The line before the last is a JSON object of the six kernels; the last is
 from __future__ import annotations
 
 import argparse
+import collections
 import copy
 import dataclasses
 import json
@@ -204,6 +216,39 @@ def log(msg: str) -> None:
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def device_counts(kernels) -> dict:
+    """Each kernel's runs on the card since its module's last reset: the
+    kernels' own device counters (core/launches.py), which count a launch
+    replayed from a captured window as often as it ran."""
+    return {n: c for k in kernels for n, c in k.device_launch_counts().items()}
+
+
+def host_counts(kernels) -> dict:
+    """Each kernel wrapper's calls (a captured launch counts once, at its
+    capture)."""
+    return {n: c for k in kernels for n, c in k.launch_counts.items()}
+
+
+def spread(xs) -> dict:
+    """How often each value occurs in *xs*, by value."""
+    return dict(sorted(collections.Counter(xs).items()))
+
+
+def graph_stats(sim) -> dict:
+    """The captured window of *sim* (``FusedSimulation.window``): its
+    warm-up, capture and instantiation seconds and the spread of steps
+    and graph launches per window."""
+    st = sim.window.stats
+    return {"warmup_s": st["warmup_s"],
+            "warmup_newton_iters": st["warmup_newton_iters"],
+            "capture_s": st["capture_s"],
+            "instantiate_s": st["instantiate_s"],
+            "steps_per_window": spread(st["steps"]),
+            "launches_per_window": spread(st["launches"]),
+            "windows": len(st["steps"]), "launches": sum(st["launches"]),
+            "syncs": st["syncs"]}
 
 
 def scaled_err(ref, got) -> float:
@@ -804,7 +849,10 @@ def expected_files(sim) -> set:
 def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     """A main path: run_project_fast in f32 on the card from *start_min*
     for *minutes*, every launch count set to 0 just before and read just
-    after.  Returns what it measured, the counts under "launches"."""
+    after (the kernels' device counts under "launches", the wrappers'
+    calls under "host_launches").  Each window's solve replays the
+    captured graph: host syncs = graph launches, at most one a window plus
+    one per launch beyond the first."""
     import numpy as np
 
     from shud_tpu_torch.driver.run_fast import run_project_fast
@@ -822,16 +870,30 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
                            outpath=outdir, verbose=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
+    counts = device_counts(kernels)
+    host = host_counts(kernels)
     syncs, iters = bdf.host_syncs - syncs0, bdf.newton_iters - iters0
     ne = sim.md.num_ele
+    check(sim.window is not None and sim.window.capture,
+          "the main path's windows were not captured")
+    graph = graph_stats(sim)
+    check(graph["windows"] == windows and syncs == graph["launches"],
+          f"host syncs {syncs} for {graph['launches']} graph launches in "
+          f"{graph['windows']} of {windows} windows")
     nfe, nsteps = sim.bdf.nfe, sim.bdf.nsteps
     log(f"  main path: {ne} cells, simulated minutes {start_min:g}-"
         f"{end_min:g}, nsteps {nsteps}, nfe {nfe}, Newton iterations "
         f"{iters}, wall {wall:.2f} s, host syncs {syncs}")
     log(f"  cell-steps/s (NumEle x NFE / wall): {ne * nfe / wall:.6g}")
-    log(f"  launches: {counts}; per NFE "
-        + " ".join(f"{k} {n / nfe:.3f}" for k, n in counts.items()))
+    log(f"  launches on the device: {counts}; per NFE "
+        + " ".join(f"{k} {n / nfe:.3f}" for k, n in counts.items())
+        + f"; wrapper calls (captures and eager calls): {host}")
+    log(f"  captured window: warm-up {graph['warmup_s']:.3f} s, capture "
+        f"{graph['capture_s']:.3f} s, instantiate "
+        f"{graph['instantiate_s']:.3f} s; steps per window "
+        f"{graph['steps_per_window']}, graph launches per window "
+        f"{graph['launches_per_window']}; host syncs {syncs} in {windows} "
+        f"windows ({syncs / windows:.3f} a window)")
     check(float(sim.bdf.t) == end_min, f"stopped at t={sim.bdf.t}")
     check(bool(np.isfinite(sim.y_np()).all()), "non-finite state")
     files = set(os.listdir(outdir))
@@ -850,7 +912,7 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
                 windows=windows, wall_s=wall, host_syncs=syncs,
                 cell_steps_per_s=ne * nfe / wall, num_ele=ne,
                 output_files=len(files), launches=counts,
-                mega=sim.mega is not None)
+                host_launches=host, graph=graph, mega=sim.mega is not None)
 
 
 def storm_sim(inp, torch, float_dtype=None, start=720.0, per_window=False,
@@ -1011,12 +1073,20 @@ def phase_cli(torch) -> dict:
 
 def phase_profile(inp, torch, **kw):
     """Where one storm window's time goes (torch.profiler): device busy
-    time, idle share, launches per NFE, kernel time by name."""
+    time, idle share, launches per NFE, kernel time by name.  The same
+    window of a twin simulation without the profiler gives the wall the
+    idle share is also read against (the profiler's tracing of a graph's
+    kernels slows a captured window down)."""
     from torch.profiler import ProfilerActivity, profile
 
-    sim = storm_sim(inp, torch, **kw)
-    sim.advance_interval(10.0)
+    sim, twin = (storm_sim(inp, torch, **kw) for _ in range(2))
+    for s in (sim, twin):
+        s.advance_interval(10.0)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin.advance_interval(10.0)
+    torch.cuda.synchronize()
+    bare_wall = time.perf_counter() - t0
     nfe0 = sim.bdf.nfe
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1026,6 +1096,9 @@ def phase_profile(inp, torch, **kw):
         wall = time.perf_counter() - t0
     rows = [(r.key, _self_device_us(r), r.count) for r in prof.key_averages()]
     busy_s = sum(us for _, us, _ in rows) / 1e6
+    # the host's launch calls the profiler saw (the runtime API rows)
+    host_calls = {k: c for k, us, c in rows if us == 0 and (
+        "LaunchKernel" in k or "LaunchCooperative" in k or "GraphLaunch" in k)}
     top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:10]
     nfe = sim.bdf.nfe - nfe0
     launches = sum(c for _, us, c in rows if us > 0)
@@ -1034,20 +1107,31 @@ def phase_profile(inp, torch, **kw):
     mega_launches = {kind: sum(c for k, us, c in rows if us > 0 and pat in k)
                      for kind, pat in (("fused", "::fused<"),
                                        ("diag", "fused<false, true>"))}
+    check(twin.bdf.nfe == sim.bdf.nfe, "the profiled window's twin differs")
     prof_summary = {
         "window_wall_s": wall, "nfe": nfe, "device_busy_s": busy_s,
         "device_idle_share": (1.0 - busy_s / wall) if busy_s > 0 else None,
+        "unprofiled_wall_s": bare_wall,
+        "device_idle_share_unprofiled": (1.0 - busy_s / bare_wall)
+        if busy_s > 0 else None,
         "kernel_launches": launches, "launches_per_nfe": launches / nfe,
         "mega_launches": mega_launches,
         "mega_launches_per_nfe": {k: n / nfe for k, n in
                                   mega_launches.items()},
+        "host_launch_calls": host_calls,
+        "host_launch_calls_per_nfe": sum(host_calls.values()) / nfe,
+        "captured": sim.window is not None,
         "top_device_ms": {k[:60]: round(us / 1e3, 3) for k, us, _ in top},
     }
-    log(f"  one storm window under the profiler: wall {wall:.3f} s, nfe "
-        f"{nfe}, device busy {busy_s:.3f} s, idle share "
-        f"{prof_summary['device_idle_share']}, {launches} launches "
+    log(f"  one storm window under the profiler: wall {wall:.3f} s "
+        f"(without it {bare_wall:.3f} s), nfe {nfe}, device busy "
+        f"{busy_s:.3f} s, idle share {prof_summary['device_idle_share']} "
+        f"({prof_summary['device_idle_share_unprofiled']} of the "
+        f"unprofiled wall), {launches} launches "
         f"({launches / nfe:.1f} per NFE); mega kernel launches per NFE "
-        + ", ".join(f"{k} {n / nfe:.3f}" for k, n in mega_launches.items()))
+        + ", ".join(f"{k} {n / nfe:.3f}" for k, n in mega_launches.items())
+        + f"; captured {sim.window is not None}; host launch calls "
+        f"{host_calls}")
     for k, us, c in top:
         log(f"    {us / 1e3:9.3f} ms  {c:6d}x  {k[:70]}")
     return prof_summary
@@ -1126,8 +1210,9 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
         log_rows = np.loadtxt(os.path.join(out, "synthetic.time.csv"),
                               skiprows=1, ndmin=2)
         n_files = len(os.listdir(out))
-    counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
-    check(not any(counts.values()), f"{what}: a kernel ran on -g: {counts}")
+    counts = device_counts(kernels)
+    check(not any(counts.values()) and not any(host_counts(kernels).values()),
+          f"{what}: a kernel ran on -g: {counts}")
     parts = {k: getattr(st, k) for k in ("surf", "unsat", "gw", "riv", "lake")
              if getattr(st, k) is not None}
     check(("lake" in parts) == bool(nl), f"{what}: lake sub-solve")
@@ -1249,8 +1334,7 @@ def phase_truth(inp, torch, edge, mega, bdf, spun: dict) -> dict:
             gaps.append(g)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {n: c for k in (edge, mega)
-                  for n, c in k.launch_counts.items()}
+        counts = device_counts((edge, mega))
         log(f"  {name} vs truth ({sim.bdf.nfe} NFE, {wall:.2f} s, launches "
             f"{counts}): " + "; ".join(
                 f"w{w} gw {g['gw']:.3e} riv {g['riv']:.3e} sf {g['sf']:.3e} "
@@ -1313,7 +1397,7 @@ def phase_netcdf(inp, torch, mega, kernels) -> dict:
         same = bool(torch.equal(a, b))
         gap = float((a.double() - b.double()).abs().max())
         check(same or gap < BAR_DRIVER, f"NetCDF-forced run parts by {gap}")
-    counts = dict(mega.launch_counts)
+    counts = mega.device_launch_counts()
     log(f"  mega path over {STORM_WINDOWS} storm windows: NetCDF-forced vs "
         f"CSV-forced bitwise equal {same} (max |dy| {gap:.3e} m), NFE "
         f"{sims['netcdf'].bdf.nfe} / {sims['csv'].bdf.nfe}, launches "
@@ -1414,7 +1498,7 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
         log(f"  refined, window {w}: kernel vs plain max |dy| {gap:.3e} m")
         check(gap < BAR_DRIVER,
               f"refined: kernel path parts by {gap:.3e} m (window {w})")
-    counts = dict(edge.launch_counts)
+    counts = edge.device_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     for name, sim in sims.items():
         check(sim.mega is None, "the refined mesh took the mega path")
@@ -1422,8 +1506,10 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
         log(f"  {name}: wall per window " + ", ".join(
             f"{x:.2f}" for x in out[name]["window_wall_s"])
             + f" s, {sim.bdf.nfe} NFE")
-    log(f"  kernel path: {iters} Newton iterations, launches {counts}; peak "
-        f"device memory {peak:.2f} GiB")
+    log(f"  kernel path: {iters} Newton iterations (2 of them the captured "
+        f"window's warm-up), launches {counts}; peak device memory "
+        f"{peak:.2f} GiB")
+    iters += k.window.stats["warmup_newton_iters"]
     check(counts["edge_coeff"] == iters
           and counts["edge_apply"] == k.cfg.krylov_m * iters
           and counts["edge_flux"] == STORM_WINDOWS,
@@ -1510,7 +1596,7 @@ def sharded_rank(group, inp, n_windows, hour=None,
             y = sim.y_full()
             if group.is_main:
                 ys.append(y)
-        out[name] = dict(launches=dict(edge.launch_counts),
+        out[name] = dict(launches=edge.device_launch_counts(),
                          newton_iters=bdf.newton_iters - it0, nfe=sim.nfe,
                          nsteps=int(sim.state.nsteps), wall_s=walls,
                          collectives=coll, setup_s=setup_s,
@@ -1771,6 +1857,7 @@ def phase_calib(torch, kernels, bdf, smi: str) -> dict:
     import numpy as np
 
     from shud_tpu_torch.io.project import read_calib
+    from shud_tpu_torch.solver import graph
     from shud_tpu_torch.tools import autocalibrate as tac
     from shud_tpu_torch.tools import calib_tournament as ttour
     from shud_tpu_torch.utils.calibrate import (calib_from_vector,
@@ -1817,19 +1904,22 @@ def phase_calib(torch, kernels, bdf, smi: str) -> dict:
                                "--popsize", str(CALIB_POP), "-o", outdir])
         for k in kernels:
             k.reset_launch_counts()
-        iters0 = bdf.newton_iters
+        iters0, warm0 = bdf.newton_iters, graph.warmup_newton_iters
         t0 = time.perf_counter()
         res = tac.calibrate(args, inp, obs_t, obs_q)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {n: c for k in kernels for n, c in k.launch_counts.items()}
-        iters = bdf.newton_iters - iters0
+        counts = device_counts(kernels)
+        # the solves' Newton iterations (from the device carry) and those
+        # of each candidate's captured window's warm-up
+        warm = graph.warmup_newton_iters - warm0
+        iters = bdf.newton_iters - iters0 + warm
         cands = res.candidates
         windows = sum(c.days for c in cands) * wpd
         krylov_m = bdf.SolverConfig().krylov_m
         log(f"  search: {len(cands)} candidates in {wall:.2f} s, "
-            f"{iters} Newton iterations, {windows} windows; launches "
-            f"{counts}")
+            f"{iters} Newton iterations ({warm} of them warm-ups), "
+            f"{windows} windows; launches {counts}")
         check(len(cands) == CALIB_GENS * CALIB_POP, "wrong candidate count")
         check(counts["mega_rhs"] == iters
               and counts["mega_jvp"] == krylov_m * iters
@@ -1900,6 +1990,126 @@ def phase_calib(torch, kernels, bdf, smi: str) -> dict:
     return out
 
 
+def main_projects(sim_minutes: float):
+    """The edge path's 131k and the mega path's 32k storm projects, every
+    output channel at one interval a day (the 131k with its per-edge flux
+    channels)."""
+    days = max(1.0, sim_minutes / 1440)
+    inp = storm_project(*EDGE_MESH, end_day=days)
+    inp32 = storm_project(*MEGA_MESH, end_day=days)
+    for p, per_edge in ((inp, 1440), (inp32, 0)):
+        for name in vars(p.control):
+            if name.startswith("dt_"):
+                setattr(p.control, name, 1440)
+        # the per-edge flux channels need rhs_full's [Ne,3] fluxes, which
+        # take the window diagnostics off the mega kernel (as in JAX)
+        p.control.dt_Qe_subx = p.control.dt_Qe_surfx = per_edge
+    return inp, inp32
+
+
+def phase_main_paths(inp, inp32, torch, edge, mega, bdf, sim_minutes,
+                     summary) -> dict:
+    """Phase 7: both main paths (phase_main) and their launch gates; the
+    summary gains each run, and the kernels' launches are returned."""
+    counts = {}
+    for name, p, want, absent, start, span in (
+            ("edge_131k", inp, edge, mega, *EDGE_MAIN_SPAN),
+            ("mega_32k", inp32, mega, edge, 0.0, sim_minutes)):
+        with tempfile.TemporaryDirectory(prefix="shud_smoke_") as outdir:
+            run = phase_main(copy.deepcopy(p), torch, (edge, mega), bdf,
+                             min(span, sim_minutes), outdir, start)
+        for k in want.launch_counts:
+            check(run["launches"][k] > 0, f"{k} not launched on {name}")
+        for k in absent.launch_counts:
+            check(run["launches"][k] == 0, f"{k} launched on {name}")
+        check(run["mega"] == (want is mega), f"{name}: wrong RHS path")
+        # the Newton iterations of the solves (from the device carry) and
+        # of the captured window's warm-up
+        it = run["newton_iters"] + run["graph"]["warmup_newton_iters"]
+        m = run["krylov_m"]
+        if want is edge:
+            # linearized once per Newton iteration (the coefficient kernel
+            # in the primal), one apply per Krylov vector; edge_flux only
+            # in the window diagnostics (no quad_rates: SHUD_WB_DIAG off)
+            n = run["launches"]
+            check(n["edge_coeff"] == it and n["edge_apply"] == m * it
+                  and n["edge_flux"] == run["windows"],
+                  f"{name}: {n} for {it} Newton iterations in "
+                  f"{run['windows']} windows")
+        if want is mega:
+            # linearized once per Newton iteration: one RHS launch, then
+            # one tangent launch per Krylov vector
+            check(run["launches"]["mega_rhs"] == it
+                  and run["launches"]["mega_jvp"] == m * it,
+                  f"{name}: {run['launches']} for {it} Newton iterations")
+            check(run["launches"]["mega_diag"] == run["windows"],
+                  f"{name}: {run['launches']['mega_diag']} mega_diag "
+                  f"launches in {run['windows']} windows")
+        counts.update({k: run["launches"][k] for k in want.launch_counts})
+        summary[f"main_{name}"] = run
+    return counts
+
+
+def phase_captured(runs, torch, bdf) -> dict:
+    """Phase 19: the captured window against the eager loop on the card
+    (``FusedSimulation.create(captured=False)``) over phase 7's spans,
+    window by window: after every window the two states bitwise equal,
+    with equal steps, NFE and Newton iterations (the device carry's); host
+    syncs, graph launches per window, the graph's warm-up, capture and
+    instantiation seconds and each path's wall.  *runs*: (name, project,
+    start minute, minutes)."""
+    out = {}
+    for name, p, start, span in runs:
+        sims = {"captured": storm_sim(p, torch, start=start),
+                "eager": storm_sim(p, torch, start=start, captured=False)}
+        n_windows = int(round(span / p.control.solver_step))
+        per = {k: {"wall_s": 0.0, "syncs": 0, "newton_iters": 0}
+               for k in sims}
+        for w in range(n_windows):
+            iters = {}
+            for k, sim in sims.items():
+                s0, i0 = bdf.host_syncs, bdf.newton_iters
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                advance(sim, p.control.solver_step)
+                torch.cuda.synchronize()
+                per[k]["wall_s"] += time.perf_counter() - t0
+                per[k]["syncs"] += bdf.host_syncs - s0
+                iters[k] = bdf.newton_iters - i0
+                per[k]["newton_iters"] += iters[k]
+            a, b = sims["captured"].bdf, sims["eager"].bdf
+            check(torch.equal(a.y, b.y) and torch.equal(a.y_prev, b.y_prev)
+                  and (a.t, a.h, a.order, a.nsteps, a.nfe, a.nfails,
+                       a.nnifails) == (b.t, b.h, b.order, b.nsteps, b.nfe,
+                                       b.nfails, b.nnifails)
+                  and iters["captured"] == iters["eager"],
+                  f"{name}: captured and eager windows part at window {w}")
+        cap, eag = sims["captured"], sims["eager"]
+        check(cap.window is not None and eag.window is None,
+              f"{name}: captured {cap.window is not None}, eager "
+              f"{eag.window is not None}")
+        g = graph_stats(cap)
+        check(per["captured"]["syncs"] == g["launches"],
+              f"{name}: {per['captured']['syncs']} host syncs for "
+              f"{g['launches']} graph launches")
+        res = {"windows": n_windows, "nsteps": cap.bdf.nsteps,
+               "nfe": cap.bdf.nfe, "graph": g, **{
+                   k: dict(v, syncs_per_window=v["syncs"] / n_windows)
+                   for k, v in per.items()}}
+        log(f"  {name}: {n_windows} windows bitwise equal captured and "
+            f"eager; nfe {cap.bdf.nfe}, Newton iterations "
+            f"{per['captured']['newton_iters']}; wall captured "
+            f"{per['captured']['wall_s']:.3f} s, eager "
+            f"{per['eager']['wall_s']:.3f} s; host syncs captured "
+            f"{per['captured']['syncs']}, eager {per['eager']['syncs']}; "
+            f"graph launches per window {g['launches_per_window']}, steps "
+            f"per window {g['steps_per_window']}; warm-up "
+            f"{g['warmup_s']:.3f} s, capture {g['capture_s']:.3f} s, "
+            f"instantiate {g['instantiate_s']:.3f} s")
+        out[name] = res
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-minutes", type=float, default=1440.0,
@@ -1949,16 +2159,7 @@ def main() -> int:
 
     # phase 3: the meshes
     t0 = time.perf_counter()
-    days = max(1.0, args.sim_minutes / 1440)
-    inp = storm_project(*EDGE_MESH, end_day=days)
-    inp32 = storm_project(*MEGA_MESH, end_day=days)
-    for p, per_edge in ((inp, 1440), (inp32, 0)):
-        for name in vars(p.control):
-            if name.startswith("dt_"):
-                setattr(p.control, name, 1440)
-        # the per-edge flux channels need rhs_full's [Ne,3] fluxes, which
-        # take the window diagnostics off the mega kernel (as in JAX)
-        p.control.dt_Qe_subx = p.control.dt_Qe_surfx = per_edge
+    inp, inp32 = main_projects(args.sim_minutes)
     md, md32 = build_mesh(inp), build_mesh(inp32)
     lake_md = build_mesh(storm_project(*LAKE_MESH, 1.0, with_lake=True,
                                        localize=False))
@@ -1988,39 +2189,8 @@ def main() -> int:
     summary["mega_rhs_32k"] = phase_mega_rhs(md32, torch, mega)
 
     log("phase 7: the main paths (run_project_fast, f32, cuda)")
-    counts = {}
-    for name, p, want, absent, start, span in (
-            ("edge_131k", inp, edge, mega, *EDGE_MAIN_SPAN),
-            ("mega_32k", inp32, mega, edge, 0.0, args.sim_minutes)):
-        with tempfile.TemporaryDirectory(prefix="shud_smoke_") as outdir:
-            run = phase_main(copy.deepcopy(p), torch, (edge, mega), bdf,
-                             min(span, args.sim_minutes), outdir, start)
-        for k in want.launch_counts:
-            check(run["launches"][k] > 0, f"{k} not launched on {name}")
-        for k in absent.launch_counts:
-            check(run["launches"][k] == 0, f"{k} launched on {name}")
-        check(run["mega"] == (want is mega), f"{name}: wrong RHS path")
-        it, m = run["newton_iters"], run["krylov_m"]
-        if want is edge:
-            # linearized once per Newton iteration (the coefficient kernel
-            # in the primal), one apply per Krylov vector; edge_flux only
-            # in the window diagnostics (no quad_rates: SHUD_WB_DIAG off)
-            n = run["launches"]
-            check(n["edge_coeff"] == it and n["edge_apply"] == m * it
-                  and n["edge_flux"] == run["windows"],
-                  f"{name}: {n} for {it} Newton iterations in "
-                  f"{run['windows']} windows")
-        if want is mega:
-            # linearized once per Newton iteration: one RHS launch, then
-            # one tangent launch per Krylov vector
-            check(run["launches"]["mega_rhs"] == it
-                  and run["launches"]["mega_jvp"] == m * it,
-                  f"{name}: {run['launches']} for {it} Newton iterations")
-            check(run["launches"]["mega_diag"] == run["windows"],
-                  f"{name}: {run['launches']['mega_diag']} mega_diag "
-                  f"launches in {run['windows']} windows")
-        counts.update({k: run["launches"][k] for k in want.launch_counts})
-        summary[f"main_{name}"] = run
+    counts = phase_main_paths(inp, inp32, torch, edge, mega, bdf,
+                              args.sim_minutes, summary)
 
     log("phase 8: kernel paths vs reference paths, determinism")
     summary["paths_edge_131k"] = phase_paths(
@@ -2053,9 +2223,14 @@ def main() -> int:
         repeat=False)
     log("phase 11: the command line")
     summary["cli"] = phase_cli(torch)
-    log("phase 12: profile of one storm window on each path")
+    log("phase 12: profile of one storm window on each path, captured and "
+        "eager")
     summary["profile_edge_131k"] = phase_profile(inp, torch)
     summary["profile_mega_32k"] = phase_profile(inp32, torch)
+    summary["profile_edge_131k_eager"] = phase_profile(inp, torch,
+                                                       captured=False)
+    summary["profile_mega_32k_eager"] = phase_profile(inp32, torch,
+                                                      captured=False)
     log("phase 13: the operator-split driver (-g, f64) vs the implicit one")
     spun32 = spin_up(inp32, torch)
     summary["split_32k"] = phase_split(inp32, torch, (edge, mega), "32k",
@@ -2074,6 +2249,11 @@ def main() -> int:
     log(f"phase 18: autocalibration on the mega path ({MEGA_MESH[0]}x"
         f"{MEGA_MESH[1]} mesh, f32)")
     summary["calib_32k"] = phase_calib(torch, (edge, mega), bdf, smi)
+    log("phase 19: the captured window vs the eager loop (phase 7's spans)")
+    summary["captured"] = phase_captured(
+        (("edge_131k", inp, EDGE_MAIN_SPAN[0],
+          min(EDGE_MAIN_SPAN[1], args.sim_minutes)),
+         ("mega_32k", inp32, 0.0, args.sim_minutes)), torch, bdf)
 
     summary["script_s"] = time.perf_counter() - t_script
     log(f"script: {summary['script_s']:.1f} s")

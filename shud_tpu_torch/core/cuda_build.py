@@ -97,17 +97,23 @@ def load_library() -> ctypes.CDLL:
         log = "" if out.exists() else _build(out)
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.shud_edge_flux.argtypes = [p] * 16 + [i, i, p]
-    lib.shud_edge_coeff.argtypes = [p] * 22 + [i, i, p]
-    lib.shud_edge_apply.argtypes = [p] * 12 + [i, p]
+    lib.shud_edge_flux.argtypes = [p] * 17 + [i, i, p]
+    lib.shud_edge_coeff.argtypes = [p] * 23 + [i, i, p]
+    lib.shud_edge_apply.argtypes = [p] * 13 + [i, p]
     pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     for name in ("shud_mega_rhs", "shud_mega_jvp", "shud_mega_diag"):
         getattr(lib, name).argtypes = [pp, ip, p]
     lib.shud_mega_occupancy.argtypes = [i, ip]
     lib.shud_mega_barrier_probe.argtypes = [i, i, p]
+    graph_args = {"create": [pp], "destroy": [p], "add_child": [p, p, p, pp],
+                  "add_if": [p, p, p, pp, pp], "instantiate": [p, pp],
+                  "launch": [p, p], "exec_destroy": [p]}
+    for name, args in graph_args.items():
+        getattr(lib, f"shud_graph_{name}").argtypes = args
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,
                lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag,
-               lib.shud_mega_occupancy, lib.shud_mega_barrier_probe):
+               lib.shud_mega_occupancy, lib.shud_mega_barrier_probe,
+               *(getattr(lib, f"shud_graph_{n}") for n in graph_args)):
         fn.restype = ctypes.c_int
     lib.shud_mega_scratch_floats.argtypes = [i, i, i, i]
     lib.shud_mega_scratch_floats.restype = ctypes.c_longlong

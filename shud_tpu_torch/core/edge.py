@@ -36,16 +36,20 @@ import torch
 
 from shud_tpu_torch.config import MAXYSURF
 from shud_tpu_torch.core.cuda_build import load_library
+from shud_tpu_torch.core.launches import LaunchCounts
 from shud_tpu_torch.core.physics import (
     _TINY, absolute, cbrt, maximum, minimum, pow23)
 
-# launches of each CUDA kernel since the last reset_launch_counts()
-launch_counts = {"edge_flux": 0, "edge_coeff": 0, "edge_apply": 0}
+_counts = LaunchCounts(("edge_flux", "edge_coeff", "edge_apply"))
+# launches of each CUDA kernel by its wrapper since the last
+# reset_launch_counts(); device_launch_counts() gives the kernels' own
+# count, which also counts the runs of a captured launch
+launch_counts = _counts.host
+device_launch_counts = _counts.device
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    _counts.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +279,7 @@ def _edge_flux_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
     lib = load_library()
     outs = [torch.empty_like(tables[1]) for _ in range(2)]
     err = lib.shud_edge_flux(*_ptrs(sf, gw, kh, *tables, *outs),
+                             _counts.pointer("edge_flux", sf.device),
                              sf.shape[0], int(close_boundary), _stream())
     _raise_if(err, "edge_flux")
     launch_counts["edge_flux"] += 1
@@ -289,6 +294,7 @@ def _edge_coeff_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
     lib = load_library()
     outs = [torch.empty_like(tables[1]) for _ in range(8)]
     err = lib.shud_edge_coeff(*_ptrs(sf, gw, kh, *tables, *outs),
+                              _counts.pointer("edge_coeff", sf.device),
                               sf.shape[0], int(close_boundary), _stream())
     _raise_if(err, "edge_coeff")
     launch_counts["edge_coeff"] += 1
@@ -303,6 +309,7 @@ def _edge_apply_op(tsf: torch.Tensor, tgw: torch.Tensor, tkh: torch.Tensor,
     lib = load_library()
     outs = [torch.empty_like(coeffs[0]) for _ in range(2)]
     err = lib.shud_edge_apply(*_ptrs(tsf, tgw, tkh, nabr, *coeffs, *outs),
+                              _counts.pointer("edge_apply", tsf.device),
                               tsf.shape[0], _stream())
     _raise_if(err, "edge_apply")
     launch_counts["edge_apply"] += 1

@@ -56,19 +56,23 @@ from shud_tpu_torch.core.device import _fixed_width_lists
 from shud_tpu_torch.core.cuda_build import load_library
 from shud_tpu_torch.core.edge import (
     _flux_sub_bnd, _flux_sub_int, _flux_surface_int, on_cpu)
+from shud_tpu_torch.core.launches import LaunchCounts
 from shud_tpu_torch.core.physics import cbrt
 
 _TINY = 1.0e-30
 MAX_CELLS = 32768
 MAX_LAKES = 64
 
-# launches of each CUDA kernel since the last reset_launch_counts()
-launch_counts = {"mega_rhs": 0, "mega_jvp": 0, "mega_diag": 0}
+_counts = LaunchCounts(("mega_rhs", "mega_jvp", "mega_diag"))
+# launches of each CUDA kernel by its wrapper since the last
+# reset_launch_counts(); device_launch_counts() gives the kernels' own
+# count, which also counts the runs of a captured launch
+launch_counts = _counts.host
+device_launch_counts = _counts.device
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    _counts.reset()
 
 
 # ---------------------------------------------------------------------------
@@ -1256,8 +1260,14 @@ class _LaunchState:
     calls run in order on torch's current stream, so they can share it),
     each kernel's dims array (the grid from launch_plan last), and the
     pointer array of the forcing bound last (tables, forcing, state,
-    tangent, output, scratch), whose state, tangent and output slots each
-    call fills in."""
+    tangent, output, scratch, launch counter), whose state, tangent,
+    output and counter slots each call fills in.
+
+    A captured window (``solver/graph.py``) keeps the pointers of its
+    capture: the forcing it binds is the window's static buffers, which
+    every window refills, and the one scratch buffer is shared safely by
+    the replays because they run in order on one stream, as the eager
+    calls do."""
 
     def __init__(self, t: MegaTables):
         _check_tables(t)
@@ -1280,8 +1290,9 @@ class _LaunchState:
     def bind(self, t: MegaTables, forcing: MegaForcing) -> None:
         _check_forcing(t, forcing)
         tensors = [getattr(t, n) for n in _KERNEL_TABLES] + list(forcing)
-        self.ptrs = (ctypes.c_void_p * 24)(
-            *[v.data_ptr() for v in tensors], 0, 0, 0, self.scratch.data_ptr())
+        self.ptrs = (ctypes.c_void_p * 25)(
+            *[v.data_ptr() for v in tensors], 0, 0, 0, self.scratch.data_ptr(),
+            0)
         self.forcing = forcing
 
 
@@ -1301,6 +1312,7 @@ def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
     out = y.new_empty(n_out)
     p = st.ptrs
     p[20], p[21], p[22] = y.data_ptr(), ty.data_ptr(), out.data_ptr()
+    p[24] = _counts.pointer(name, y.device)
     err = st.fns[name](p, st.dims[name, bool(close_boundary)],
                        torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
@@ -1316,6 +1328,7 @@ def _launch(name: str, y, ty, tensors, dims, n_out):
     out = y.new_empty(n_out)
     scratch = y.new_empty(lib.shud_mega_scratch_floats(*dims[:4]))
     ptrs = [t.data_ptr() for t in (*tensors, y, ty, out, scratch)]
+    ptrs.append(_counts.pointer(name, y.device))
     err = getattr(lib, f"shud_{name}")(
         (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * 12)(*dims),
         torch.cuda.current_stream(y.device).cuda_stream)

@@ -20,7 +20,9 @@
 // arrays tables, and reuse the coefficients across Krylov vectors.
 //
 // Each entry point launches on the given stream and returns
-// cudaGetLastError(); the caller allocates every output.
+// cudaGetLastError(); the caller allocates every output.  Each kernel adds
+// one to *count (a device counter of edge.py's) where it runs, so that a
+// launch replayed from a CUDA graph is counted as well.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -146,9 +148,11 @@ __global__ void edge_flux_kernel(const float* __restrict__ sf,
                                  const float* __restrict__ gw,
                                  const float* __restrict__ kh, Tables t,
                                  float* __restrict__ q_surf,
-                                 float* __restrict__ q_sub, int n_edges,
+                                 float* __restrict__ q_sub,
+                                 unsigned long long* count, int n_edges,
                                  int close_boundary) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e == 0) atomicAdd(count, 1ULL);
   if (e >= n_edges) return;
   Edge d = load_edge(sf, gw, kh, t, e, close_boundary);
   float isf = fmaxf(d.sfi, 0.f);
@@ -178,8 +182,10 @@ __global__ void edge_coeff_kernel(
     float* __restrict__ q_sub, float* __restrict__ c_si,
     float* __restrict__ c_sj, float* __restrict__ c_g1,
     float* __restrict__ c_g2, float* __restrict__ c_ki,
-    float* __restrict__ c_kj, int n_edges, int close_boundary) {
+    float* __restrict__ c_kj, unsigned long long* count, int n_edges,
+    int close_boundary) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e == 0) atomicAdd(count, 1ULL);
   if (e >= n_edges) return;
   Edge d = load_edge(sf, gw, kh, t, e, close_boundary);
   float isf = fmaxf(d.sfi, 0.f);
@@ -255,8 +261,10 @@ __global__ void edge_apply_kernel(
     const float* __restrict__ c_si, const float* __restrict__ c_sj,
     const float* __restrict__ c_g1, const float* __restrict__ c_g2,
     const float* __restrict__ c_ki, const float* __restrict__ c_kj,
-    float* __restrict__ tq_surf, float* __restrict__ tq_sub, int n_edges) {
+    float* __restrict__ tq_surf, float* __restrict__ tq_sub,
+    unsigned long long* count, int n_edges) {
   int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e == 0) atomicAdd(count, 1ULL);
   if (e >= n_edges) return;
   int i = e / 3;
   int j = nabr[e];
@@ -291,14 +299,14 @@ int shud_edge_flux(const float* sf, const float* gw, const float* kh,
                    const float* avg_rough, const float* dzs, const float* dzb,
                    const float* d2e, const uint8_t* m_int,
                    const uint8_t* m_bnd, const float* dep, const float* rough,
-                   float* q_surf, float* q_sub, int ne, int close_boundary,
-                   cudaStream_t stream) {
+                   float* q_surf, float* q_sub, unsigned long long* count,
+                   int ne, int close_boundary, cudaStream_t stream) {
   int n_edges = 3 * ne;
   if (n_edges > 0) {
     Tables t = make_tables(nabr, edge, dist, avg_rough, dzs, dzb, d2e, m_int,
                            m_bnd, dep, rough);
     edge_flux_kernel<<<blocks_for(n_edges), kThreads, 0, stream>>>(
-        sf, gw, kh, t, q_surf, q_sub, n_edges, close_boundary);
+        sf, gw, kh, t, q_surf, q_sub, count, n_edges, close_boundary);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -310,14 +318,15 @@ int shud_edge_coeff(const float* sf, const float* gw, const float* kh,
                     const uint8_t* m_bnd, const float* dep, const float* rough,
                     float* q_surf, float* q_sub, float* c_si, float* c_sj,
                     float* c_g1, float* c_g2, float* c_ki, float* c_kj,
-                    int ne, int close_boundary, cudaStream_t stream) {
+                    unsigned long long* count, int ne, int close_boundary,
+                    cudaStream_t stream) {
   int n_edges = 3 * ne;
   if (n_edges > 0) {
     Tables t = make_tables(nabr, edge, dist, avg_rough, dzs, dzb, d2e, m_int,
                            m_bnd, dep, rough);
     edge_coeff_kernel<<<blocks_for(n_edges), kThreads, 0, stream>>>(
         sf, gw, kh, t, q_surf, q_sub, c_si, c_sj, c_g1, c_g2, c_ki, c_kj,
-        n_edges, close_boundary);
+        count, n_edges, close_boundary);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -325,13 +334,13 @@ int shud_edge_coeff(const float* sf, const float* gw, const float* kh,
 int shud_edge_apply(const float* tsf, const float* tgw, const float* tkh,
                     const int* nabr, const float* c_si, const float* c_sj,
                     const float* c_g1, const float* c_g2, const float* c_ki,
-                    const float* c_kj, float* tq_surf, float* tq_sub, int ne,
-                    cudaStream_t stream) {
+                    const float* c_kj, float* tq_surf, float* tq_sub,
+                    unsigned long long* count, int ne, cudaStream_t stream) {
   int n_edges = 3 * ne;
   if (n_edges > 0) {
     edge_apply_kernel<<<blocks_for(n_edges), kThreads, 0, stream>>>(
         tsf, tgw, tkh, nabr, c_si, c_sj, c_g1, c_g2, c_ki, c_kj, tq_surf,
-        tq_sub, n_edges);
+        tq_sub, count, n_edges);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -124,6 +124,7 @@ struct Args {
   const float* flake;
   const float* y; const float* ty;
   float* out; float* s;
+  unsigned long long* count;  // mega.py's device launch counter
   int ne, nr, ns, nl, kc, kr, kup, kel, krl, kb, close_boundary;
 
   __device__ float cf(int f, int i) const { return cell_f[f * ne + i]; }
@@ -981,6 +982,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) fused(Args a) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int ne = a.ne, nr = a.nr;
   const bool is_cell = t < ne, is_reach = !is_cell && t < ne + nr;
+  if (t == 0) atomicAdd(a.count, 1ULL);  // also counts a graph's replays
   CellA c = {};
   Flux e2r = {0.f, 0.f, 0.f, 0.f};
   Down own = {0.f, 0.f};
@@ -1037,7 +1039,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 }
 
 // pointer order of the entry points (mega.py _KERNEL_TABLES, then the
-// forcing, the state, its tangent, the output and the scratch)
+// forcing, the state, its tangent, the output, the scratch and the launch
+// counter)
 Args make_args(void* const* p, const int* d) {
   Args a;
   a.cell_f = static_cast<const float*>(p[0]);
@@ -1064,6 +1067,7 @@ Args make_args(void* const* p, const int* d) {
   a.ty = static_cast<const float*>(p[21]);
   a.out = static_cast<float*>(p[22]);
   a.s = static_cast<float*>(p[23]);
+  a.count = static_cast<unsigned long long*>(p[24]);
   a.ne = d[0]; a.nr = d[1]; a.ns = d[2]; a.nl = d[3];
   a.kc = d[4]; a.kr = d[5]; a.kup = d[6]; a.kel = d[7]; a.krl = d[8];
   a.kb = d[9]; a.close_boundary = d[10];

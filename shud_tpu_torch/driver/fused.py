@@ -13,7 +13,11 @@ one tangent kernel call per Krylov vector), where the diagnostics take one
 kernel call too.  JAX runs the
 windows as one ``lax.scan`` inside one jit; here they are a Python loop
 whose tensors stay on the device, and the host receives the interval
-means and the per-window river stages.
+means and the per-window river stages.  On the card each window's solve
+is one replay of a captured CUDA graph (``solver/graph.WindowGraph``: the
+JAX solver's ``lax.while_loop`` on the device, one host sync a window
+plus one per further launch); ``FusedSimulation.create(captured=False)``
+runs the eager loop there instead, for comparison.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from shud_tpu_torch.driver.init import initial_buckets, initial_state
 from shud_tpu_torch.io.project import ProjectInput, load_project
 from shud_tpu_torch.solver.bdf import (
     BDFState, SolverConfig, bdf_init, np_dtype, solve_to)
+from shud_tpu_torch.solver.graph import WindowGraph
 
 
 class ChunkTables(NamedTuple):
@@ -150,6 +155,41 @@ def quad_rates(mesh, slc: ForcingSlice, tt, yy, close_boundary: bool):
             "lake_e": lake_e}
 
 
+def window_functions(dm: TorchMesh, mega, close_boundary: bool,
+                     mega_kernel: bool = True, quad: bool = False):
+    """``solve_to``'s RHS, linearization hook and quadrature (None without
+    *quad*) for the windows of one simulation, each given the window's
+    forcing as its params: ``(MegaForcing, ForcingSlice or None)`` on the
+    mega path, the ``ForcingSlice`` on the eager one.  They close over no
+    window's values, so a captured window (``WindowGraph``) replays them
+    on its static forcing."""
+    if mega is not None:
+        def f(tt, yy, p):
+            return mega_mod.rhs_mega(mega, p[0], yy, close_boundary,
+                                     mega_kernel)
+
+        # one RHS call per Newton iteration, one tangent call per Krylov
+        # vector (shud_tpu/solver/bdf.py:174)
+        def lin(tt, yy, p):
+            return mega_mod.linearize_mega(mega, p[0], yy, close_boundary,
+                                           mega_kernel)
+
+        def qfn(tt, yy, p):
+            return quad_rates(dm, p[1], tt, yy, close_boundary)
+    else:
+        def f(tt, yy, p):
+            return rhs(dm, p, tt, yy, close_boundary=close_boundary)
+
+        # one primal (with the edge coefficients) per Newton iteration, one
+        # edge_apply per Krylov vector
+        def lin(tt, yy, p):
+            return linearize(dm, p, tt, yy, close_boundary)
+
+        def qfn(tt, yy, p):
+            return quad_rates(dm, p, tt, yy, close_boundary)
+    return f, lin, (qfn if quad else None)
+
+
 def run_interval(
     dm: TorchMesh,
     tables: ChunkTables,
@@ -175,10 +215,13 @@ def run_interval(
     mega_kernel: bool = True,  # False: the mega path on its plain versions
     cryo: "CryoState | None" = None,  # on: the frozen-ground accumulators
     cryo_bounds=(-1.0, -5.0, -3.0, -10.0),  # surf max/min, sub max/min
+    window: "WindowGraph | None" = None,  # on: each solve a graph replay
 ):
     """Advance *n_windows* solver windows; returns (bdf state, buckets,
     cryosphere state, mean_e, mean_r, mean_l, stages [W, Nr],
-    qdowns [W, Nr])."""
+    qdowns [W, Nr]).  With a *window* (built on ``window_functions`` of
+    the same simulation) each window's solve replays its graph; without,
+    ``solve_to`` runs the eager loop."""
     ne, nr, nl = dm.num_ele, dm.num_riv, dm.num_lake
     dtype = bdf_state.y.dtype
     dt = np_dtype(dtype)
@@ -194,6 +237,8 @@ def run_interval(
     st, bk = bdf_state, buckets
     stages, qdowns = [], []
     ones = torch.ones_like(dm.nx)
+    f, lin, qfn = window_functions(dm, mega, close_boundary, mega_kernel,
+                                   st.quad is not None)
     for w in range(n_windows):
         ki, li, mi = int(forc_idx[w]), int(lai_idx[w]), int(mf_idx[w])
         t = dt(t0) + dt(w) * dt(win_minutes)
@@ -242,37 +287,16 @@ def run_interval(
             riv_ybc=riv_ybc, riv_qbc=riv_qbc,
         )
 
-        qfn = None
-        if st.quad is not None:
-            def qfn(tt, yy, _params):
-                return quad_rates(dm, fs, tt, yy, close_boundary)
         if mega is not None:
             # the forcing is packed once a window
             mf = mega_mod.pack_forcing(mega, fs)
-
-            def f(tt, yy, params):
-                return mega_mod.rhs_mega(mega, params, yy, close_boundary,
-                                         mega_kernel)
-
-            # one RHS call per Newton iteration, one tangent call per
-            # Krylov vector (shud_tpu/solver/bdf.py:174)
-            def lin(tt, yy, params):
-                return mega_mod.linearize_mega(mega, params, yy,
-                                               close_boundary, mega_kernel)
-
-            st = solve_to(f, st, tout, mf, cfg, qfn, linearize=lin)
+            params = (mf, fs if qfn is not None else None)
         else:
-            def f(tt, yy, params):
-                mesh, slc = params
-                return rhs(mesh, slc, tt, yy, close_boundary=close_boundary)
-
-            # one primal (with the edge coefficients) per Newton
-            # iteration, one edge_apply per Krylov vector
-            def lin(tt, yy, params):
-                mesh, slc = params
-                return linearize(mesh, slc, tt, yy, close_boundary)
-
-            st = solve_to(f, st, tout, (dm, fs), cfg, qfn, linearize=lin)
+            params = fs
+        if window is not None:
+            st = window.solve(st, tout, params)
+        else:
+            st = solve_to(f, st, tout, params, cfg, qfn, linearize=lin)
         y = st.y
         bk = out.state
 
@@ -346,6 +370,8 @@ class FusedSimulation:
     mega: "mega_mod.MegaTables | None" = None  # on: the megakernel's tables
     mega_kernel: bool = True  # False: the mega path on its plain versions
     cryo: "CryoState | None" = None  # on with cryosphere=1
+    captured: bool = True  # on the card: each window a graph replay
+    window: "WindowGraph | None" = None  # made at the first captured window
 
     def y_dev(self) -> torch.Tensor:
         """The prognostic state as a flat device tensor."""
@@ -365,6 +391,7 @@ class FusedSimulation:
                wb_exact: "bool | None" = None,
                fr: "ForcingRuntime | None" = None,
                device: "str | torch.device" = "cuda",
+               captured: bool = True,
                **control_overrides):
         """Build a simulation on *device* (the card unless the caller
         asks for the CPU) in *float_dtype*.
@@ -383,6 +410,11 @@ class FusedSimulation:
         keeps the mega path on the kernels' plain PyTorch versions (same
         arithmetic, same hand tangent) on the card too: the reference path
         the kernels are held against.
+
+        ``captured``: on the card each window's solve replays a captured
+        CUDA graph (``solver/graph.WindowGraph``); a capture that fails
+        raises.  ``captured=False`` runs the eager loop there instead (the
+        reference the graph is held against); the CPU always runs it.
 
         The mega path keeps the eager ``TorchMesh`` beside its tables: the
         window's forcing (``cell_forcing``, ``et_bucket_step``) reads its
@@ -461,7 +493,7 @@ class FusedSimulation:
             bdf=bdf_init(cs.start_time, y0, cfg, quad0=quad0),
             buckets=BucketState(ic_stg=t(ic0), snow=t(snow0)),
             t=cs.start_time, mega=mega_tables, mega_kernel=mega_kernel,
-            cryo=cryo,
+            cryo=cryo, captured=captured,
         )
 
     def window_indices(self, t0: float, n_windows: int, win: float):
@@ -479,6 +511,11 @@ class FusedSimulation:
         n_windows = int(round(interval_minutes / win))
         fi, li, mi = self.window_indices(self.t, n_windows, win)
         gc = self.inp.calib
+        if self.window is None and self.captured and self.bdf.y.is_cuda:
+            f, lin, qfn = window_functions(
+                self.dm, self.mega, bool(cs.close_boundary),
+                self.mega_kernel, self.bdf.quad is not None)
+            self.window = WindowGraph(f, lin, self.cfg, quad_fn=qfn)
         st, bk, cryo, mean_e, mean_r, mean_l, stages, qdowns = run_interval(
             self.dm, self.tables, self.bdf, self.buckets, self.fr.cal,
             self.t, fi, li, mi,
@@ -493,6 +530,7 @@ class FusedSimulation:
             mega=self.mega, mega_kernel=self.mega_kernel, cryo=self.cryo,
             cryo_bounds=(gc.fzn_surfmax, gc.fzn_surfmin,
                          gc.fzn_submax, gc.fzn_submin),
+            window=self.window,
         )
         self.bdf = st
         self.buckets = bk

@@ -16,6 +16,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from shud_tpu_torch.driver.fused import FusedSimulation
 from shud_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
@@ -205,12 +206,23 @@ class IntervalWriter:
 
 
 def _to_host(tree):
-    """Tensors (in dicts, to any depth) -> numpy; other leaves unchanged."""
-    if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
-    return tree
+    """Tensors (in dicts, to any depth) -> numpy, other leaves unchanged:
+    the tensors of one dtype and device packed into one buffer and fetched
+    in one transfer (one host sync), as JAX's ``jax.device_get`` fetches
+    the tree at once."""
+    leaves, spec = pytree.tree_flatten(tree)
+    groups = {}
+    for i, x in enumerate(leaves):
+        if isinstance(x, torch.Tensor):
+            groups.setdefault((x.dtype, x.device), []).append(i)
+    for idx in groups.values():
+        parts = [leaves[i].detach() for i in idx]
+        flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        off = 0
+        for i, p in zip(idx, parts):
+            leaves[i] = flat[off:off + p.numel()].reshape(p.shape)
+            off += p.numel()
+    return pytree.tree_unflatten(leaves, spec)
 
 
 def run_project_fast(project: str, base: str = ".", end_day=None,

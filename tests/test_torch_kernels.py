@@ -354,3 +354,49 @@ def test_sharded_rhs_with_kernels():
         assert k["launches"] == {"edge_flux": 1, "edge_coeff": 1,
                                  "edge_apply": 1}
         assert p["launches"] == dict.fromkeys(k["launches"], 0)
+
+
+@pytest.mark.parametrize("mega", (True, False))
+def test_captured_window_matches_eager(mega):
+    """The fused driver's windows replayed from a captured CUDA graph
+    (solver/graph.py, conditional nodes from csrc/graph.cu) bitwise the
+    eager loop's after every interval, with equal counters; on both, the
+    kernels' device counts equal the Newton iterations (krylov_m times for
+    the tangent kernel), the captured run's two warm-up iterations
+    included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs and kernels)")
+    from shud_tpu_torch.core import edge
+    from shud_tpu_torch.core import mega as M
+    from shud_tpu_torch.driver.fused import FusedSimulation
+    from shud_tpu_torch.solver import bdf, graph
+    from shud_tpu_torch.utils.synthetic import make_synthetic_project
+
+    runs = {}
+    for captured in (True, False):
+        sim = FusedSimulation.create(
+            "synthetic", inp=make_synthetic_project(24, 16, end_day=1.0),
+            float_dtype=torch.float32, mega=mega, device="cuda",
+            captured=captured)
+        for k in (edge, M):
+            k.reset_launch_counts()
+        it0, w0 = bdf.newton_iters, graph.warmup_newton_iters
+        ys = []
+        for _ in range(3):
+            sim.advance_interval(60.0)
+            ys.append(sim.bdf.y.clone())
+        torch.cuda.synchronize()
+        counts = {**edge.device_launch_counts(), **M.device_launch_counts()}
+        iters = bdf.newton_iters - it0 + graph.warmup_newton_iters - w0
+        runs[captured] = (sim, ys, counts, iters)
+    (a, ya, ca, ia), (b, yb, cb, ib) = runs[True], runs[False]
+    assert a.window is not None and a.window.capture and b.window is None
+    assert all(torch.equal(x, y) for x, y in zip(ya, yb))
+    assert (a.bdf.nsteps, a.bdf.nfe, a.bdf.nfails, a.bdf.nnifails) == (
+        b.bdf.nsteps, b.bdf.nfe, b.bdf.nfails, b.bdf.nnifails)
+    assert ia == ib + 2 and ib > 0
+    assert a.window.stats["syncs"] == sum(a.window.stats["launches"])
+    first, tangent = (("mega_rhs", "mega_jvp") if mega
+                      else ("edge_coeff", "edge_apply"))
+    for n, it in ((ca, ia), (cb, ib)):
+        assert n[first] == it and n[tangent] == a.cfg.krylov_m * it, n
