@@ -9,10 +9,11 @@ path at 32,768 cells for one simulated day (one kernel call per RHS, J·v
 and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072 cells
 over the storm's first six hours (eager RHS with the edge trio,
 csrc/edge_flux.cu, linearized once per Newton iteration by
-rhs.linearize); on both each window's solve replays a captured CUDA graph
-(solver/graph.py, csrc/graph.cu).  Launch counts are the kernels' own
-device counters (core/launches.py), which count a captured launch each
-time it runs.  Phases (any failed check raises
+rhs.linearize); on both each output interval is one launch of a captured
+CUDA graph (driver/fused.py IntervalGraph over solver/graph.py,
+csrc/graph.cu: WHILE nodes for the window and step loops).  Launch counts
+are the kernels' own device counters (core/launches.py), which count a
+captured launch each time it runs.  Phases (any failed check raises
 and the script exits nonzero; nothing falls back to the CPU):
  1. the card (nvidia-smi name and power limit), exit if CUDA is absent;
  2. build both CUDA sources (one nvcc each, in parallel); registers and
@@ -43,9 +44,10 @@ and the script exits nonzero; nothing falls back to the CPU):
     has no water-balance quadrature), no mega kernel; at 32k the mega
     trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
     krylov_m times and mega_diag once a window (the Newton iterations
-    read from the device carry, plus the two of the captured window's
-    warm-up); every window captured, host syncs = graph launches; output
-    file set and finite values;
+    read from the device carry, plus the two of the interval graph's
+    warm-up, and its one warm-up window); every interval one graph launch,
+    host syncs = graph launches = intervals; output file set and finite
+    values;
  8. 6 storm windows on each kernel path beside its references, window by
     window, NFE within 2%: at 131k the plain f32 path, state within
     2e-5 m; at 32k the mega path on the kernels' plain versions, state
@@ -61,11 +63,14 @@ and the script exits nonzero; nothing falls back to the CPU):
     within 2e-5 m of the plain f32 path;
 10. the per-window driver (Simulation.advance_window) at 131k over 6
     storm windows beside FusedSimulation: within 2e-5 m, NFE within 2%;
+    its captured solve (a WindowGraph a window) bitwise its eager loop
+    (Simulation.create(captured=False));
 11. the command line in fresh processes: python -m shud_tpu_torch -h
     exits 0, -g --f32 exits nonzero (-g runs float64 only);
-12. one storm window of each path under torch.profiler, captured and
-    eager: device busy time, idle share, launches per NFE, mega kernel
-    launches per NFE, the host's launch calls (reported, not checked);
+12. one storm window of each path under torch.profiler, captured (an
+    interval graph of one window) and eager: device busy time, idle share,
+    launches per NFE, mega kernel launches per NFE, the host's launch
+    calls (reported, not checked);
 13. the operator-split driver (run_project_split, -g, float64) over the 6
     storm windows at 32k and on the lake mesh against the fused float64
     eager driver: every block within 5e-3 m (the lake stage 5e-2 m); the
@@ -103,12 +108,22 @@ and the script exits nonzero; nothing falls back to the CPU):
     an NFE budget below day 0's aborts after day 1 with 5.0; the
     tournament over {truth, default} writes the truth; the tool's -h in a
     fresh process.  Set-up and wall per candidate-day reported;
-19. the captured window against the eager loop
-    (FusedSimulation.create(captured=False)) over phase 7's spans, window
-    by window: bitwise equal states, equal steps, NFE and Newton
-    iterations after every window; host syncs, graph launches and steps
-    per window, warm-up, capture and instantiation seconds, each path's
-    wall.
+19. the default (an interval graph, here one window an interval)
+    against the eager loop (FusedSimulation.create(captured=False)) over
+    phase 7's spans, window by window: bitwise equal states, equal steps,
+    NFE and Newton iterations after every window; host syncs, graph
+    launches and steps per window, warm-up, capture and instantiation
+    seconds, each path's wall;
+20. the interval graph against the per-window replay (captured="window")
+    and the eager loop over the mega-32k day (2-hour intervals),
+    edge-131k's minutes 720-1080 (1-hour intervals) and frost-32k (an
+    hour from minute 710, then a short interval of one window): after
+    every interval bitwise equal states, buckets, means, stages and
+    qdowns, equal steps, NFE and Newton iterations; one graph launch and
+    one host sync an interval; the device counters (mega_diag or
+    edge_flux = windows, plus the interval graph's warm-up window); each
+    form's wall, warm-up, capture and instantiation seconds; one interval
+    under torch.profiler: the host launches no kernel outside the graph.
 The line before the last is a JSON object of the six kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -168,6 +183,8 @@ EDGE_MESH, MEGA_MESH, LAKE_MESH = (256, 256), (128, 128), (64, 64)
 EDGE_MAIN_SPAN = (720.0, 360.0)
 # storm windows of 10 minutes on each kernel path against its references
 STORM_WINDOWS = 6
+# the main paths' output interval: every channel once a day
+OUTPUT_MINUTES = 1440
 # the cryosphere phase: one window at this temperature [C] before the
 # storm, whose first accumulator flush holds for a day: fu_surf
 # 1 - (-1 + 4.5) / 4 = 0.125, fu_sub 1 - (-3 + 4.5) / 7 = 0.786 (the
@@ -236,19 +253,27 @@ def spread(xs) -> dict:
     return dict(sorted(collections.Counter(xs).items()))
 
 
+def graph_of(sim):
+    """The captured graph of *sim*: its interval graph
+    (``FusedSimulation.interval``), else its window graph (``window``)."""
+    return getattr(sim, "interval", None) or sim.window
+
+
 def graph_stats(sim) -> dict:
-    """The captured window of *sim* (``FusedSimulation.window``): its
-    warm-up, capture and instantiation seconds and the spread of steps
-    and graph launches per window."""
-    st = sim.window.stats
-    return {"warmup_s": st["warmup_s"],
+    """The captured graph of *sim* (``graph_of``): its warm-up, capture
+    and instantiation seconds, what the warm-up ran, the spread of steps
+    per launch (an interval's or a window's), launches, host syncs and
+    windows."""
+    g = graph_of(sim)
+    st = g.stats
+    return {"form": type(g).__name__, "warmup_s": st["warmup_s"],
             "warmup_newton_iters": st["warmup_newton_iters"],
+            "warmup_windows": st.get("warmup_windows", 0),
             "capture_s": st["capture_s"],
             "instantiate_s": st["instantiate_s"],
-            "steps_per_window": spread(st["steps"]),
-            "launches_per_window": spread(st["launches"]),
-            "windows": len(st["steps"]), "launches": sum(st["launches"]),
-            "syncs": st["syncs"]}
+            "steps_per_launch": spread(st["steps"]),
+            "windows": st.get("windows", len(st["steps"])),
+            "launches": st["launches"], "syncs": st["syncs"]}
 
 
 def scaled_err(ref, got) -> float:
@@ -850,9 +875,8 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     """A main path: run_project_fast in f32 on the card from *start_min*
     for *minutes*, every launch count set to 0 just before and read just
     after (the kernels' device counts under "launches", the wrappers'
-    calls under "host_launches").  Each window's solve replays the
-    captured graph: host syncs = graph launches, at most one a window plus
-    one per launch beyond the first."""
+    calls under "host_launches").  Each output interval is one launch of
+    the interval graph: host syncs = graph launches = intervals."""
     import numpy as np
 
     from shud_tpu_torch.driver.run_fast import run_project_fast
@@ -874,12 +898,15 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     host = host_counts(kernels)
     syncs, iters = bdf.host_syncs - syncs0, bdf.newton_iters - iters0
     ne = sim.md.num_ele
-    check(sim.window is not None and sim.window.capture,
-          "the main path's windows were not captured")
+    check(sim.interval is not None and sim.interval.capture
+          and sim.window is None,
+          "the main path's intervals were not captured")
     graph = graph_stats(sim)
-    check(graph["windows"] == windows and syncs == graph["launches"],
+    intervals = -(-int(minutes) // OUTPUT_MINUTES)
+    check(graph["windows"] == windows
+          and syncs == graph["launches"] == graph["syncs"] == intervals,
           f"host syncs {syncs} for {graph['launches']} graph launches in "
-          f"{graph['windows']} of {windows} windows")
+          f"{graph['windows']} of {windows} windows, {intervals} intervals")
     nfe, nsteps = sim.bdf.nfe, sim.bdf.nsteps
     log(f"  main path: {ne} cells, simulated minutes {start_min:g}-"
         f"{end_min:g}, nsteps {nsteps}, nfe {nfe}, Newton iterations "
@@ -888,12 +915,12 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     log(f"  launches on the device: {counts}; per NFE "
         + " ".join(f"{k} {n / nfe:.3f}" for k, n in counts.items())
         + f"; wrapper calls (captures and eager calls): {host}")
-    log(f"  captured window: warm-up {graph['warmup_s']:.3f} s, capture "
+    log(f"  interval graph: warm-up {graph['warmup_s']:.3f} s, capture "
         f"{graph['capture_s']:.3f} s, instantiate "
-        f"{graph['instantiate_s']:.3f} s; steps per window "
-        f"{graph['steps_per_window']}, graph launches per window "
-        f"{graph['launches_per_window']}; host syncs {syncs} in {windows} "
-        f"windows ({syncs / windows:.3f} a window)")
+        f"{graph['instantiate_s']:.3f} s; steps per interval "
+        f"{graph['steps_per_launch']}; {graph['launches']} graph launches "
+        f"and {syncs} host syncs in {intervals} intervals of {windows} "
+        f"windows ({syncs / windows:.4f} a window)")
     check(float(sim.bdf.t) == end_min, f"stopped at t={sim.bdf.t}")
     check(bool(np.isfinite(sim.y_np()).all()), "non-finite state")
     files = set(os.listdir(outdir))
@@ -909,7 +936,8 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
                   f"{f}: empty or non-finite")
     return dict(start_min=start_min, sim_minutes=minutes, nsteps=nsteps,
                 nfe=nfe, newton_iters=iters, krylov_m=sim.cfg.krylov_m,
-                windows=windows, wall_s=wall, host_syncs=syncs,
+                windows=windows, intervals=intervals, wall_s=wall,
+                host_syncs=syncs,
                 cell_steps_per_s=ne * nfe / wall, num_ele=ne,
                 output_files=len(files), launches=counts,
                 host_launches=host, graph=graph, mega=sim.mega is not None)
@@ -1071,27 +1099,30 @@ def phase_cli(torch) -> dict:
     return out
 
 
-def phase_profile(inp, torch, **kw):
-    """Where one storm window's time goes (torch.profiler): device busy
-    time, idle share, launches per NFE, kernel time by name.  The same
-    window of a twin simulation without the profiler gives the wall the
-    idle share is also read against (the profiler's tracing of a graph's
-    kernels slows a captured window down)."""
+def phase_profile(inp, torch, minutes: float = 10.0, start: float = 720.0,
+                  **kw):
+    """Where one storm interval's time goes (torch.profiler; one window
+    unless *minutes* say otherwise, after one interval of the same
+    length): device busy time, idle share, launches per NFE, kernel time
+    by name, the host's launch calls.  The same interval of a twin
+    simulation without the profiler gives the wall the idle share is
+    also read against (the profiler's tracing of a graph's kernels slows
+    a captured window down)."""
     from torch.profiler import ProfilerActivity, profile
 
-    sim, twin = (storm_sim(inp, torch, **kw) for _ in range(2))
+    sim, twin = (storm_sim(inp, torch, start=start, **kw) for _ in range(2))
     for s in (sim, twin):
-        s.advance_interval(10.0)
+        s.advance_interval(minutes)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    twin.advance_interval(10.0)
+    twin.advance_interval(minutes)
     torch.cuda.synchronize()
     bare_wall = time.perf_counter() - t0
     nfe0 = sim.bdf.nfe
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.advance_interval(10.0)
+        sim.advance_interval(minutes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(r.key, _self_device_us(r), r.count) for r in prof.key_averages()]
@@ -1120,17 +1151,19 @@ def phase_profile(inp, torch, **kw):
                                   mega_launches.items()},
         "host_launch_calls": host_calls,
         "host_launch_calls_per_nfe": sum(host_calls.values()) / nfe,
-        "captured": sim.window is not None,
+        "windows": round(minutes / inp.control.solver_step),
+        "captured": type(graph_of(sim)).__name__ if graph_of(sim)
+        else None,
         "top_device_ms": {k[:60]: round(us / 1e3, 3) for k, us, _ in top},
     }
-    log(f"  one storm window under the profiler: wall {wall:.3f} s "
+    log(f"  {minutes:g} storm minutes under the profiler: wall {wall:.3f} s "
         f"(without it {bare_wall:.3f} s), nfe {nfe}, device busy "
         f"{busy_s:.3f} s, idle share {prof_summary['device_idle_share']} "
         f"({prof_summary['device_idle_share_unprofiled']} of the "
         f"unprofiled wall), {launches} launches "
         f"({launches / nfe:.1f} per NFE); mega kernel launches per NFE "
         + ", ".join(f"{k} {n / nfe:.3f}" for k, n in mega_launches.items())
-        + f"; captured {sim.window is not None}; host launch calls "
+        + f"; captured {prof_summary['captured']}; host launch calls "
         f"{host_calls}")
     for k, us, c in top:
         log(f"    {us / 1e3:9.3f} ms  {c:6d}x  {k[:70]}")
@@ -1452,7 +1485,8 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
     their plain versions over the 6 storm windows, window by window:
     within 2e-5 m after every window, NFE within 2%; on the kernel path
     edge_coeff once per Newton iteration, edge_apply krylov_m times and
-    edge_flux once a window (counts set to 0 just before its first window
+    edge_flux once a window, plus the interval graph's warm-up (two Newton
+    iterations, one window; counts set to 0 just before its first window
     and read after its last; its Newton iterations counted around its own
     windows).  Set-up time, wall per window and peak device memory."""
     from shud_tpu_torch.core.mesh import build_mesh
@@ -1506,13 +1540,15 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
         log(f"  {name}: wall per window " + ", ".join(
             f"{x:.2f}" for x in out[name]["window_wall_s"])
             + f" s, {sim.bdf.nfe} NFE")
-    log(f"  kernel path: {iters} Newton iterations (2 of them the captured "
-        f"window's warm-up), launches {counts}; peak device memory "
-        f"{peak:.2f} GiB")
-    iters += k.window.stats["warmup_newton_iters"]
+    warm = graph_of(k).stats
+    iters += warm["warmup_newton_iters"]
+    log(f"  kernel path: {iters} Newton iterations ("
+        f"{warm['warmup_newton_iters']} of them the interval graph's "
+        f"warm-up, and {warm['warmup_windows']} window), launches {counts}; "
+        f"peak device memory {peak:.2f} GiB")
     check(counts["edge_coeff"] == iters
           and counts["edge_apply"] == k.cfg.krylov_m * iters
-          and counts["edge_flux"] == STORM_WINDOWS,
+          and counts["edge_flux"] == STORM_WINDOWS + warm["warmup_windows"],
           f"refined: {counts} for {iters} Newton iterations")
     check(abs(k.bdf.nfe - sims["plain"].bdf.nfe) <= 0.02 * k.bdf.nfe,
           "refined: NFE of the plain path differs by more than 2%")
@@ -1848,7 +1884,8 @@ def phase_calib(torch, kernels, bdf, smi: str) -> dict:
     repeatable); the search (--log, CALIB_GENS x CALIB_POP candidates from
     the default calibration) with every launch count set to 0 just before
     and read just after: mega_rhs = Newton iterations, mega_jvp = krylov_m
-    x Newton iterations, mega_diag = windows, no edge kernel; the card's
+    x Newton iterations, mega_diag = windows (plus each candidate graph's
+    warm-up window), no edge kernel; the card's
     allocated memory after each candidate within 1 MiB of the first's; a
     budget below day 0's NFE in one-day chunks aborts after day 1 with
     the penalty; the tournament over {truth, default} writes the truth;
@@ -1905,17 +1942,19 @@ def phase_calib(torch, kernels, bdf, smi: str) -> dict:
         for k in kernels:
             k.reset_launch_counts()
         iters0, warm0 = bdf.newton_iters, graph.warmup_newton_iters
+        wwarm0 = graph.warmup_windows
         t0 = time.perf_counter()
         res = tac.calibrate(args, inp, obs_t, obs_q)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = device_counts(kernels)
         # the solves' Newton iterations (from the device carry) and those
-        # of each candidate's captured window's warm-up
+        # of each candidate's interval graph's warm-up, and its window
         warm = graph.warmup_newton_iters - warm0
         iters = bdf.newton_iters - iters0 + warm
         cands = res.candidates
-        windows = sum(c.days for c in cands) * wpd
+        windows = (sum(c.days for c in cands) * wpd
+                   + graph.warmup_windows - wwarm0)
         krylov_m = bdf.SolverConfig().krylov_m
         log(f"  search: {len(cands)} candidates in {wall:.2f} s, "
             f"{iters} Newton iterations ({warm} of them warm-ups), "
@@ -2000,7 +2039,7 @@ def main_projects(sim_minutes: float):
     for p, per_edge in ((inp, 1440), (inp32, 0)):
         for name in vars(p.control):
             if name.startswith("dt_"):
-                setattr(p.control, name, 1440)
+                setattr(p.control, name, OUTPUT_MINUTES)
         # the per-edge flux channels need rhs_full's [Ne,3] fluxes, which
         # take the window diagnostics off the mega kernel (as in JAX)
         p.control.dt_Qe_subx = p.control.dt_Qe_surfx = per_edge
@@ -2024,8 +2063,9 @@ def phase_main_paths(inp, inp32, torch, edge, mega, bdf, sim_minutes,
             check(run["launches"][k] == 0, f"{k} launched on {name}")
         check(run["mega"] == (want is mega), f"{name}: wrong RHS path")
         # the Newton iterations of the solves (from the device carry) and
-        # of the captured window's warm-up
+        # of the interval graph's warm-up, the windows and its warm-up's
         it = run["newton_iters"] + run["graph"]["warmup_newton_iters"]
+        windows = run["windows"] + run["graph"]["warmup_windows"]
         m = run["krylov_m"]
         if want is edge:
             # linearized once per Newton iteration (the coefficient kernel
@@ -2033,25 +2073,26 @@ def phase_main_paths(inp, inp32, torch, edge, mega, bdf, sim_minutes,
             # in the window diagnostics (no quad_rates: SHUD_WB_DIAG off)
             n = run["launches"]
             check(n["edge_coeff"] == it and n["edge_apply"] == m * it
-                  and n["edge_flux"] == run["windows"],
+                  and n["edge_flux"] == windows,
                   f"{name}: {n} for {it} Newton iterations in "
-                  f"{run['windows']} windows")
+                  f"{windows} windows")
         if want is mega:
             # linearized once per Newton iteration: one RHS launch, then
             # one tangent launch per Krylov vector
             check(run["launches"]["mega_rhs"] == it
                   and run["launches"]["mega_jvp"] == m * it,
                   f"{name}: {run['launches']} for {it} Newton iterations")
-            check(run["launches"]["mega_diag"] == run["windows"],
+            check(run["launches"]["mega_diag"] == windows,
                   f"{name}: {run['launches']['mega_diag']} mega_diag "
-                  f"launches in {run['windows']} windows")
+                  f"launches in {windows} windows")
         counts.update({k: run["launches"][k] for k in want.launch_counts})
         summary[f"main_{name}"] = run
     return counts
 
 
 def phase_captured(runs, torch, bdf) -> dict:
-    """Phase 19: the captured window against the eager loop on the card
+    """Phase 19: the default (an interval graph, each interval here one
+    window) against the eager loop on the card
     (``FusedSimulation.create(captured=False)``) over phase 7's spans,
     window by window: after every window the two states bitwise equal,
     with equal steps, NFE and Newton iterations (the device carry's); host
@@ -2085,9 +2126,8 @@ def phase_captured(runs, torch, bdf) -> dict:
                   and iters["captured"] == iters["eager"],
                   f"{name}: captured and eager windows part at window {w}")
         cap, eag = sims["captured"], sims["eager"]
-        check(cap.window is not None and eag.window is None,
-              f"{name}: captured {cap.window is not None}, eager "
-              f"{eag.window is not None}")
+        check(cap.interval is not None and graph_of(eag) is None,
+              f"{name}: captured {graph_of(cap)}, eager {graph_of(eag)}")
         g = graph_stats(cap)
         check(per["captured"]["syncs"] == g["launches"],
               f"{name}: {per['captured']['syncs']} host syncs for "
@@ -2102,10 +2142,148 @@ def phase_captured(runs, torch, bdf) -> dict:
             f"{per['captured']['wall_s']:.3f} s, eager "
             f"{per['eager']['wall_s']:.3f} s; host syncs captured "
             f"{per['captured']['syncs']}, eager {per['eager']['syncs']}; "
-            f"graph launches per window {g['launches_per_window']}, steps "
-            f"per window {g['steps_per_window']}; warm-up "
+            f"graph launches {g['launches']} in {g['windows']} windows, "
+            f"steps per window {g['steps_per_launch']}; warm-up "
             f"{g['warmup_s']:.3f} s, capture {g['capture_s']:.3f} s, "
             f"instantiate {g['instantiate_s']:.3f} s")
+        out[name] = res
+    return out
+
+
+def per_window_graph(sims) -> dict:
+    """Phase 10's per-window driver: its windows captured (one graph
+    launch and one host sync a window), the eager twin's not."""
+    cap, eag = sims["per_window"], sims["per_window_eager"]
+    check(cap.window is not None and cap.window.capture
+          and eag.window is None, "the per-window driver was not captured")
+    st = cap.window.stats
+    check(st["launches"] == st["syncs"] == len(st["steps"]),
+          f"per-window graph: {st['launches']} launches, {st['syncs']} "
+          f"syncs, {len(st['steps'])} windows")
+    log(f"  per-window graph: {st['launches']} launches in "
+        f"{len(st['steps'])} windows, steps per window "
+        f"{spread(st['steps'])}; warm-up {st['warmup_s']:.3f} s, capture "
+        f"{st['capture_s']:.3f} s, instantiate {st['instantiate_s']:.3f} s")
+    return {"per_window_graph": graph_stats(cap)}
+
+
+def same_interval(a, b) -> bool:
+    """Two forms' records of an interval bitwise equal: the solver state
+    (tensors and scalars), buckets, cryosphere state, means, stages and
+    qdowns, Newton iterations."""
+    import torch
+
+    def eq(x, y):
+        if isinstance(x, torch.Tensor):
+            return x.dtype == y.dtype and torch.equal(x, y)
+        if isinstance(x, dict):
+            return list(x) == list(y) and all(eq(x[k], y[k]) for k in x)
+        if isinstance(x, (tuple, list)):
+            return len(x) == len(y) and all(map(eq, x, y))
+        return x == y
+
+    return eq(a, b)
+
+
+def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
+    """Phase 20: the interval graph (the default) against the per-window
+    replay (``captured="window"``) and the eager loop (``False``), each
+    form over the whole span with every launch count set to 0 just
+    before: after every interval the records bitwise equal
+    (``same_interval``); one graph launch and one host sync an interval;
+    the device counters: the RHS kernel = Newton iterations plus the
+    warm-up's, the tangent kernel krylov_m times that, the diagnostics =
+    windows plus the warm-up's; each form's wall (set-up included) and
+    set-up seconds; then one interval of the interval and window forms
+    under torch.profiler (phase 12's twin): the interval graph launches no
+    kernel from the host.  *runs*: (name, project, start minute, interval
+    lengths)."""
+    forms = {"interval": True, "window": "window", "eager": False}
+    out = {}
+    for name, p, start, lengths in runs:
+        res, recs = {}, {}
+        for form, captured in forms.items():
+            sim = storm_sim(p, torch, start=start, captured=captured)
+            for k in kernels:
+                k.reset_launch_counts()
+            s0, w0 = bdf.host_syncs, graph.warmup_newton_iters
+            ww0 = graph.warmup_windows
+            rec, iters = [], 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for minutes in lengths:
+                i0 = bdf.newton_iters
+                outs = sim.advance_interval(minutes)
+                it = bdf.newton_iters - i0
+                iters += it
+                rec.append((tuple(sim.bdf), tuple(sim.buckets),
+                            None if sim.cryo is None
+                            else tuple(map(tuple, sim.cryo)),
+                            outs, sim.last_mean_l, it))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = device_counts(kernels)
+            windows = sum(int(round(m / p.control.solver_step))
+                          for m in lengths)
+            warm_it = graph.warmup_newton_iters - w0
+            warm_w = graph.warmup_windows - ww0
+            first, tangent, diag = (("mega_rhs", "mega_jvp", "mega_diag")
+                                    if sim.mega is not None else
+                                    ("edge_coeff", "edge_apply", "edge_flux"))
+            m = sim.cfg.krylov_m
+            check(counts[first] == iters + warm_it
+                  and counts[tangent] == m * (iters + warm_it)
+                  and counts[diag] == windows + warm_w,
+                  f"{name} {form}: {counts} for {iters} Newton iterations "
+                  f"(+{warm_it} warm-up) in {windows} windows "
+                  f"(+{warm_w} warm-up)")
+            g = graph_of(sim)
+            res[form] = {
+                "wall_s": wall, "syncs": bdf.host_syncs - s0,
+                "newton_iters": iters, "nsteps": sim.bdf.nsteps,
+                "nfe": sim.bdf.nfe, "windows": windows,
+                "intervals": len(lengths), "launches": counts,
+                "graph": graph_stats(sim) if g is not None else None}
+            recs[form] = rec
+            del sim
+        gi = res["interval"]["graph"]
+        check(gi is not None and gi["form"] == "IntervalGraph"
+              and gi["launches"] == gi["syncs"] == res["interval"]["syncs"]
+              == len(lengths) and gi["windows"] == res["interval"]["windows"],
+              f"{name}: the interval graph's launches and syncs {gi} for "
+              f"{len(lengths)} intervals")
+        for form in ("window", "eager"):
+            for k, (a, b) in enumerate(zip(recs["interval"], recs[form])):
+                check(same_interval(a, b),
+                      f"{name}: the interval graph and the {form} form part "
+                      f"at interval {k}")
+        if name != "frost_32k":
+            for form in ("interval", "window"):
+                prof = phase_profile(p, torch, minutes=lengths[0],
+                                     start=start, captured=forms[form])
+                res[form]["profile"] = prof
+                res[form]["host_launch_calls_per_window"] = sum(
+                    prof["host_launch_calls"].values()) / prof["windows"]
+            calls = res["interval"]["profile"]["host_launch_calls"]
+            check(calls.get("cudaGraphLaunch") == 1 and not any(
+                "Kernel" in k for k in calls),
+                f"{name}: the host launched {calls} around one interval "
+                f"graph")
+        log(f"  {name}: {len(lengths)} intervals of "
+            f"{res['interval']['windows']} windows bitwise equal in the "
+            f"three forms; nsteps {res['interval']['nsteps']}, nfe "
+            f"{res['interval']['nfe']}, Newton iterations "
+            f"{res['interval']['newton_iters']}; wall " + ", ".join(
+                f"{f} {r['wall_s']:.3f} s" for f, r in res.items())
+            + "; host syncs " + ", ".join(
+                f"{f} {r['syncs']}" for f, r in res.items())
+            + f"; interval graph: {gi['launches']} launches, warm-up "
+            f"{gi['warmup_s']:.3f} s, capture {gi['capture_s']:.3f} s, "
+            f"instantiate {gi['instantiate_s']:.3f} s, steps per interval "
+            f"{gi['steps_per_launch']}" + "".join(
+                f"; {f} host launch calls a window "
+                f"{r['host_launch_calls_per_window']:.1f}"
+                for f, r in res.items() if "profile" in r))
         out[name] = res
     return out
 
@@ -2132,7 +2310,7 @@ def main() -> int:
 
     from shud_tpu_torch.core import cuda_build, edge, mega
     from shud_tpu_torch.core.mesh import build_mesh
-    from shud_tpu_torch.solver import bdf
+    from shud_tpu_torch.solver import bdf, graph
     from shud_tpu_torch.utils.synthetic import make_synthetic_project
 
     # phase 1: the card
@@ -2218,9 +2396,12 @@ def main() -> int:
         after=frozen_fractions)
     log("phase 10: the per-window driver vs the fused driver (131k)")
     summary["per_window_131k"] = phase_paths(
-        inp, torch, {"per_window": {"per_window": True}, "fused": {}},
+        inp, torch, {"per_window": {"per_window": True}, "fused": {},
+                     "per_window_eager": {"per_window": True,
+                                          "captured": False}},
         {"per_window-fused": None}, "131k per-window vs fused",
-        repeat=False)
+        bitwise=(("per_window", "per_window_eager"),), repeat=False,
+        after=per_window_graph)
     log("phase 11: the command line")
     summary["cli"] = phase_cli(torch)
     log("phase 12: profile of one storm window on each path, captured and "
@@ -2254,6 +2435,19 @@ def main() -> int:
         (("edge_131k", inp, EDGE_MAIN_SPAN[0],
           min(EDGE_MAIN_SPAN[1], args.sim_minutes)),
          ("mega_32k", inp32, 0.0, args.sim_minutes)), torch, bdf)
+
+    log("phase 20: the interval graph vs the per-window replay and the "
+        "eager loop")
+    mega_iv = min(120.0, args.sim_minutes)
+    edge_span = min(EDGE_MAIN_SPAN[1], args.sim_minutes)
+    edge_iv = min(60.0, edge_span)
+    summary["interval"] = phase_interval(
+        (("mega_32k", inp32, 0.0,
+          (mega_iv,) * int(args.sim_minutes // mega_iv)),
+         ("edge_131k", inp, EDGE_MAIN_SPAN[0],
+          (edge_iv,) * int(edge_span // edge_iv)),
+         ("frost_32k", frost_project(inp32), 710.0, (60.0, 10.0))),
+        torch, (edge, mega), bdf, graph)
 
     summary["script_s"] = time.perf_counter() - t_script
     log(f"script: {summary['script_s']:.1f} s")

@@ -105,9 +105,13 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).argtypes = [pp, ip, p]
     lib.shud_mega_occupancy.argtypes = [i, ip]
     lib.shud_mega_barrier_probe.argtypes = [i, i, p]
+    u64 = ctypes.c_ulonglong
     graph_args = {"create": [pp], "destroy": [p], "add_child": [p, p, p, pp],
-                  "add_if": [p, p, p, pp, pp], "instantiate": [p, pp],
-                  "launch": [p, p], "exec_destroy": [p]}
+                  "add_if": [p, p, p, pp, pp],
+                  "add_while": [p, p, p, pp, pp, ctypes.POINTER(u64)],
+                  "add_condition": [p, p, u64, p, pp],
+                  "instantiate": [p, pp], "launch": [p, p],
+                  "exec_destroy": [p]}
     for name, args in graph_args.items():
         getattr(lib, f"shud_graph_{name}").argtypes = args
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,

@@ -25,8 +25,8 @@ class LaunchCounts:
 
     def pointer(self, name: str, device: torch.device) -> int:
         """The address of *name*'s device counter on *device* (made at the
-        first launch there, before any capture: ``WindowGraph`` warms up
-        eagerly)."""
+        first launch there, before any capture: a graph's warm-up runs
+        every piece eagerly, ``solver/graph.Program.build``)."""
         counts = self._device.get(device.index)
         if counts is None:
             counts = self._device[device.index] = torch.zeros(

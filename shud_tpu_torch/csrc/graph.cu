@@ -1,16 +1,18 @@
 // Conditional CUDA graphs assembled from captured segments, with a plain C
 // interface (shud_tpu_torch/solver/graph.py binds it with ctypes).
 //
-// The JAX solver runs a whole window inside one lax.while_loop
-// (shud_tpu/solver/bdf.py:389), its Newton loop inside another (:201).
-// The port captures the pieces of one solver step with torch.cuda.graph
-// (each a cudaGraph_t of PyTorch's kernels and the port's own) and builds
-// the window from copies of them here: a graph of S steps, each inside an
-// IF conditional node on "the window is still active", with Newton
-// iterations 2..n inside nested IF nodes on "the last update was above the
-// Newton tolerance".  A conditional node's condition is set on the device
-// by a one-thread kernel (set_condition) that reads a bool the previous
-// piece wrote, so no host decides anything while the graph runs.
+// The JAX driver runs an output interval as one jit: a lax.scan over the
+// interval's windows (shud_tpu/driver/fused.py:81-395), each window's solve
+// a lax.while_loop over steps (shud_tpu/solver/bdf.py:389) with its Newton
+// loop inside another (:201).  The port captures each piece of that program
+// with torch.cuda.graph (each a cudaGraph_t of PyTorch's kernels and the
+// port's own) and builds the program from copies of them here: WHILE
+// conditional nodes for the window and step loops, IF nodes for Newton
+// iterations 2..n.  A conditional node's condition is set on the device by
+// a one-thread kernel (set_condition) that reads a bool a piece wrote: once
+// before the node, and for a WHILE node again as the last node of its body,
+// so no host decides anything while the graph runs.  WHILE nodes need CUDA
+// 12.3 or later.
 //
 // Every entry point returns a cudaError_t as int; the caller raises.
 
@@ -26,6 +28,44 @@ __global__ void set_condition(cudaGraphConditionalHandle handle,
 int deps_of(void* dep, cudaGraphNode_t* out) {
   *out = static_cast<cudaGraphNode_t>(dep);
   return dep != nullptr ? 1 : 0;
+}
+
+// after *dep* (null: a root node): a kernel node that sets *handle* from
+// *pred
+cudaError_t add_setter(cudaGraph_t g, void* dep,
+                       cudaGraphConditionalHandle handle, const bool* pred,
+                       cudaGraphNode_t* setter) {
+  void* args[] = {&handle, &pred};
+  cudaKernelNodeParams kp = {};
+  kp.func = reinterpret_cast<void*>(&set_condition);
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.kernelParams = args;
+  cudaGraphNode_t d;
+  const int nd = deps_of(dep, &d);
+  return cudaGraphAddKernelNode(setter, g, nd ? &d : nullptr, nd, &kp);
+}
+
+// after *dep*: the setter of a new handle, then a conditional node of
+// *type* on it; *body is the graph the node runs
+cudaError_t add_conditional(cudaGraph_t g, void* dep, const bool* pred,
+                            cudaGraphConditionalNodeType type,
+                            cudaGraphConditionalHandle* handle,
+                            cudaGraph_t* body, cudaGraphNode_t* node) {
+  cudaError_t err = cudaGraphConditionalHandleCreate(handle, g, 0, 0);
+  if (err != cudaSuccess) return err;
+  cudaGraphNode_t setter;
+  err = add_setter(g, dep, *handle, pred, &setter);
+  if (err != cudaSuccess) return err;
+  cudaGraphNodeParams cp = {};
+  cp.type = cudaGraphNodeTypeConditional;
+  cp.conditional.handle = *handle;
+  cp.conditional.type = type;
+  cp.conditional.size = 1;
+  err = cudaGraphAddNode(node, g, &setter, 1, &cp);
+  if (err != cudaSuccess) return err;
+  *body = cp.conditional.phGraph_out[0];
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -54,35 +94,45 @@ int shud_graph_add_child(void* graph, void* dep, void* child, void** node) {
   return static_cast<int>(err);
 }
 
-// after *dep*: a kernel that sets a new handle's condition from *pred, then
-// an IF node on it; *body is the graph the node runs when the bool is true
+// after *dep*: an IF node run when *pred is true; *body is its graph
 int shud_graph_add_if(void* graph, void* dep, const bool* pred, void** body,
                       void** node) {
-  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
   cudaGraphConditionalHandle handle;
-  cudaError_t err = cudaGraphConditionalHandleCreate(&handle, g, 0, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&handle, &pred};
-  cudaKernelNodeParams kp = {};
-  kp.func = reinterpret_cast<void*>(&set_condition);
-  kp.gridDim = dim3(1);
-  kp.blockDim = dim3(1);
-  kp.kernelParams = args;
-  cudaGraphNode_t d, setter;
-  const int nd = deps_of(dep, &d);
-  err = cudaGraphAddKernelNode(&setter, g, nd ? &d : nullptr, nd, &kp);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaGraphNodeParams cp = {};
-  cp.type = cudaGraphNodeTypeConditional;
-  cp.conditional.handle = handle;
-  cp.conditional.type = cudaGraphCondTypeIf;
-  cp.conditional.size = 1;
-  cudaGraphNode_t n;
-  err = cudaGraphAddNode(&n, g, &setter, 1, &cp);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *body = cp.conditional.phGraph_out[0];
+  cudaGraph_t b = nullptr;
+  cudaGraphNode_t n = nullptr;
+  cudaError_t err = add_conditional(static_cast<cudaGraph_t>(graph), dep,
+                                    pred, cudaGraphCondTypeIf, &handle, &b,
+                                    &n);
+  *body = b;
   *node = n;
-  return 0;
+  return static_cast<int>(err);
+}
+
+// after *dep*: a WHILE node whose body runs as long as *pred is true.  The
+// caller ends the body with shud_graph_add_condition(body, last, *handle,
+// pred), which reads *pred again after each pass
+int shud_graph_add_while(void* graph, void* dep, const bool* pred,
+                         void** body, void** node,
+                         unsigned long long* handle) {
+  cudaGraphConditionalHandle h = 0;
+  cudaGraph_t b = nullptr;
+  cudaGraphNode_t n = nullptr;
+  cudaError_t err = add_conditional(static_cast<cudaGraph_t>(graph), dep,
+                                    pred, cudaGraphCondTypeWhile, &h, &b, &n);
+  *body = b;
+  *node = n;
+  *handle = h;
+  return static_cast<int>(err);
+}
+
+// after *dep* in *graph*: set *handle* from *pred
+int shud_graph_add_condition(void* graph, void* dep, unsigned long long handle,
+                             const bool* pred, void** node) {
+  cudaGraphNode_t n = nullptr;
+  cudaError_t err = add_setter(static_cast<cudaGraph_t>(graph), dep, handle,
+                               pred, &n);
+  *node = n;
+  return static_cast<int>(err);
 }
 
 int shud_graph_instantiate(void* graph, void** exec) {

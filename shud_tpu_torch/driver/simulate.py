@@ -7,7 +7,11 @@ snow/interception buckets explicitly, then advance the coupled ODE
 implicitly to the window end, linearizing the RHS once per Newton
 iteration (``rhs.linearize``).  The host looks the window's forcing up in
 the station tables (``ForcingRuntime``); the fused driver
-(``driver/fused.py``) batches the same windows into output intervals.
+(``driver/fused.py``) batches the same windows into output intervals.  On
+the card each window's solve is one launch of a captured CUDA graph
+(``solver/graph.WindowGraph``: JAX's ``window_step`` solves inside one
+``lax.while_loop``); ``Simulation.create(captured=False)`` and the CPU
+run the eager ``solve_to``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from shud_tpu_torch.driver.init import initial_buckets, initial_state
 from shud_tpu_torch.io.project import ProjectInput, load_project
 from shud_tpu_torch.solver.bdf import (
     BDFState, SolverConfig, bdf_init, solve_to)
+from shud_tpu_torch.solver.graph import WindowGraph
 
 
 def window_forcing(
@@ -90,6 +95,8 @@ class Simulation:
     bdf: BDFState
     buckets: BucketState
     t: float
+    captured: bool = True  # on the card: each window's solve a graph launch
+    window: "WindowGraph | None" = None  # made at the first such window
 
     @classmethod
     def create(cls, project: str, base: str = ".",
@@ -97,14 +104,19 @@ class Simulation:
                device: "str | torch.device" = "cuda",
                edge_kernel: "bool | str" = "auto",
                inp: "ProjectInput | None" = None, dummy: bool = False,
-               **control_overrides):
+               captured: bool = True, **control_overrides):
         """Load *project* (or take *inp*, as ``FusedSimulation.create``
         does) and build the simulation on *device* (the card unless the
         caller asks for the CPU) in *float_dtype*; ``edge_kernel`` as in
         ``FusedSimulation.create``.  The frozen-ground module runs only in
         the fused driver (as in the JAX package), so ``cryosphere=1`` is
         refused here unless the run solves nothing (``dummy``, the
-        reference's ``-0``)."""
+        reference's ``-0``).  ``captured``: on the card each window's
+        solve replays a ``WindowGraph`` (a capture that fails raises);
+        False runs the eager ``solve_to`` there, the reference it is held
+        against.  The CPU runs ``solve_to`` unless the caller gives the
+        simulation a ``WindowGraph`` with ``capture=False`` (the
+        tests)."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -144,7 +156,7 @@ class Simulation:
         buckets = BucketState(ic_stg=t(ic0), snow=t(snow0))
         bdf = bdf_init(cs.start_time, t(y0), cfg)
         return cls(inp=inp, md=md, dm=dm, fr=fr, cfg=cfg, bdf=bdf,
-                   buckets=buckets, t=cs.start_time)
+                   buckets=buckets, t=cs.start_time, captured=captured)
 
     def _dev(self, a):
         y = self.bdf.y
@@ -180,21 +192,32 @@ class Simulation:
         the implicit solve, linearized once per Newton iteration.  Returns
         (forcing slice, cell forcing) of the window."""
         fs, cf, buckets = self._window_forcing(tout)
-        cb = bool(self.inp.control.close_boundary)
-
-        def f(tt, yy, params):
-            mesh, slc = params
-            return rhs(mesh, slc, tt, yy, close_boundary=cb)
-
-        def lin(tt, yy, params):
-            mesh, slc = params
-            return linearize(mesh, slc, tt, yy, cb)
-
-        self.bdf = solve_to(f, self.bdf, tout, (self.dm, fs), self.cfg,
-                            linearize=lin)
+        if self.window is None and self.captured and self.bdf.y.is_cuda:
+            self.window = WindowGraph(*self.window_functions(), self.cfg)
+        if self.window is not None:
+            self.bdf = self.window.solve(self.bdf, tout, fs)
+        else:
+            f, lin = self.window_functions()
+            self.bdf = solve_to(f, self.bdf, tout, fs, self.cfg,
+                                linearize=lin)
         self.buckets = buckets
         self.t = tout
         return fs, cf
+
+    def window_functions(self):
+        """``solve_to``'s RHS and linearization hook (``rhs.linearize``),
+        given the window's forcing slice as their params; the mesh is a
+        constant of both, so a ``WindowGraph`` replays them on its static
+        forcing."""
+        dm, cb = self.dm, bool(self.inp.control.close_boundary)
+
+        def f(tt, yy, fs):
+            return rhs(dm, fs, tt, yy, close_boundary=cb)
+
+        def lin(tt, yy, fs):
+            return linearize(dm, fs, tt, yy, cb)
+
+        return f, lin
 
     def run(self, t_end: float | None = None,
             observer: Callable | None = None):

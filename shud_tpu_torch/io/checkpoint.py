@@ -65,11 +65,11 @@ def save_checkpoint(path: str, sim) -> None:
     payload = {"__t__": np.asarray(float(sim.t))}
     for key, v in _leaves(sim).items():
         if isinstance(v, torch.Tensor):
-            payload[key] = v.detach().cpu().numpy()
-        elif key.rsplit("/", 1)[-1] in _INT_FIELDS:
+            v = v.detach().cpu().numpy()
+        # the counters as int32, as the JAX package writes them (the
+        # solver's are host ints, the cryosphere's 0-d int64 tensors)
+        if key.rsplit("/", 1)[-1] in _INT_FIELDS:
             payload[key] = np.asarray(v, dtype=np.int32)
-        elif key.endswith("/time_start"):
-            payload[key] = np.asarray(v, dtype=_np_dtype(sim))
         else:
             payload[key] = np.asarray(v)
     with open(path, "wb") as f:
@@ -106,8 +106,6 @@ def load_checkpoint(path: str, sim) -> None:
                                              device=leaf.device)
         elif isinstance(leaf, int):
             new[key] = int(v)
-        elif key.endswith("/time_start"):
-            new[key] = float(v)
         else:
             new[key] = dt(v)
     states = {}

@@ -23,11 +23,11 @@ the order and the counters int64), and every decision is a
 predictor, the BDF coefficients and the first Newton iteration;
 ``newton_iter``, each later one; ``step_end``, the error test and the
 controller), so that ``solver/graph.py`` can capture each once and replay
-a whole window from the card with no host in the loop (the JAX solver's
-``lax.while_loop``).  ``solve_to`` runs them in a host loop that reads its
-two conditions (another Newton iteration, another step) from the device:
-the CPU's route, and on the card that of the drivers that do not capture
-(per-window, ``-g``, sharded).  ``host_syncs`` counts its device reads,
+a whole window, or an output interval of windows, from the card with no
+host in the loop (the JAX solver's ``lax.while_loop``).  ``solve_to`` runs
+them in a host loop that reads its two conditions (another Newton
+iteration, another step) from the device: the CPU's route, and on the
+card that of the drivers that do not capture (``-g``, sharded).  ``host_syncs`` counts its device reads,
 ``newton_iters`` the Newton iterations, read from the carry.  Within a
 window the RHS is autonomous (the driver freezes the forcing slice, as
 the reference refreshes forcing only between CVode calls,

@@ -358,12 +358,12 @@ def test_sharded_rhs_with_kernels():
 
 @pytest.mark.parametrize("mega", (True, False))
 def test_captured_window_matches_eager(mega):
-    """The fused driver's windows replayed from a captured CUDA graph
-    (solver/graph.py, conditional nodes from csrc/graph.cu) bitwise the
-    eager loop's after every interval, with equal counters; on both, the
-    kernels' device counts equal the Newton iterations (krylov_m times for
-    the tangent kernel), the captured run's two warm-up iterations
-    included."""
+    """The fused driver's intervals, each one launch of a captured CUDA
+    graph (driver/fused.py IntervalGraph; WHILE and IF conditional nodes
+    from csrc/graph.cu), bitwise the eager loop's after every interval,
+    with equal counters; on both, the kernels' device counts equal the
+    Newton iterations (krylov_m times for the tangent kernel), the
+    captured run's two warm-up iterations included."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (graphs and kernels)")
     from shud_tpu_torch.core import edge
@@ -390,13 +390,75 @@ def test_captured_window_matches_eager(mega):
         iters = bdf.newton_iters - it0 + graph.warmup_newton_iters - w0
         runs[captured] = (sim, ys, counts, iters)
     (a, ya, ca, ia), (b, yb, cb, ib) = runs[True], runs[False]
-    assert a.window is not None and a.window.capture and b.window is None
+    assert a.interval is not None and a.interval.capture
+    assert a.window is None and b.window is None and b.interval is None
     assert all(torch.equal(x, y) for x, y in zip(ya, yb))
     assert (a.bdf.nsteps, a.bdf.nfe, a.bdf.nfails, a.bdf.nnifails) == (
         b.bdf.nsteps, b.bdf.nfe, b.bdf.nfails, b.bdf.nnifails)
     assert ia == ib + 2 and ib > 0
-    assert a.window.stats["syncs"] == sum(a.window.stats["launches"])
+    assert a.interval.stats["syncs"] == a.interval.stats["launches"] == 3
     first, tangent = (("mega_rhs", "mega_jvp") if mega
                       else ("edge_coeff", "edge_apply"))
     for n, it in ((ca, ia), (cb, ib)):
         assert n[first] == it and n[tangent] == a.cfg.krylov_m * it, n
+
+
+def _same(a, b, what):
+    """Two trees of tensors and host numbers equal, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
+    elif isinstance(a, (dict, tuple, list)):
+        assert len(a) == len(b), what
+        keys = list(a) if isinstance(a, dict) else range(len(a))
+        if isinstance(a, dict):
+            assert list(a) == list(b), what
+        for k in keys:
+            _same(a[k], b[k], f"{what}/{k}")
+    else:
+        assert a == b and type(a) is type(b), (what, a, b)
+
+
+@pytest.mark.parametrize("mega", (True, False))
+def test_interval_graph_matches_window_replay(mega):
+    """The interval graph (one launch an interval) against the per-window
+    replay (``captured="window"``) and the eager loop over three
+    intervals, the last short: bitwise equal after every interval (state,
+    buckets, means, stages, qdowns), the same steps, NFE and Newton
+    iterations; one host sync an interval; the diagnostics kernel's device
+    count the windows plus the interval graph's one warm-up window."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs and kernels)")
+    from shud_tpu_torch.core import edge
+    from shud_tpu_torch.core import mega as M
+    from shud_tpu_torch.driver.fused import FusedSimulation
+    from shud_tpu_torch.solver import bdf
+    from shud_tpu_torch.utils.synthetic import make_synthetic_project
+
+    sims = {c: FusedSimulation.create(
+        "synthetic", inp=make_synthetic_project(24, 16, end_day=1.0),
+        float_dtype=torch.float32, mega=mega, device="cuda", captured=c)
+        for c in (True, "window", False)}
+    for k in (edge, M):
+        k.reset_launch_counts()
+    for minutes in (60.0, 60.0, 30.0):
+        outs, iters = {}, {}
+        for c, sim in sims.items():
+            it0, s0 = bdf.newton_iters, bdf.host_syncs
+            outs[c] = sim.advance_interval(minutes)
+            iters[c] = bdf.newton_iters - it0
+            if c is True:
+                assert bdf.host_syncs - s0 == 1
+        for c in ("window", False):
+            _same(outs[True], outs[c], f"outputs {c}")
+            _same(tuple(sims[True].bdf), tuple(sims[c].bdf), f"bdf {c}")
+            _same(tuple(sims[True].buckets), tuple(sims[c].buckets),
+                  f"buckets {c}")
+            assert iters[True] == iters[c] > 0
+    g = sims[True].interval
+    assert g.capture and g.stats["launches"] == 3 and g.stats["windows"] == 15
+    assert sims["window"].window.capture and sims[False].window is None
+    torch.cuda.synchronize()
+    diag = "mega_diag" if mega else "edge_flux"
+    counts = {**edge.device_launch_counts(), **M.device_launch_counts()}
+    # the three forms' windows, and the interval graph's warm-up window
+    assert counts[diag] == 3 * 15 + 1
