@@ -74,7 +74,19 @@ and the script exits nonzero; nothing falls back to the CPU):
 13. the operator-split driver (run_project_split, -g, float64) over the 6
     storm windows at 32k and on the lake mesh against the fused float64
     eager driver: every block within 5e-3 m (the lake stage 5e-2 m); the
-    sub-solvers' steps and NFE, the wall per window; no kernel launched;
+    sub-solvers' steps and NFE, the wall per window, one host sync a
+    window; no kernel launched.  Then the -g window in three forms in one
+    process over the same windows: the graph (each window's sweep one
+    launch of a captured SplitGraph, the default), the eager loop on the
+    hand linearizations, the eager torch.func.jvp route: after every
+    window the graph bitwise the eager hand loop (every sub-state, its
+    scalars, the fetched values); the hand and jvp routes the same steps
+    and NFE per sub-solver and within 1e-9 m at the end; each
+    sub-linearization's primal bitwise its sub-RHS and its J·v within
+    1e-12 scaled of torch.func.jvp; each form's wall per window, host
+    syncs a window, graph launches, the graph's warm-up, capture and
+    instantiation seconds, and one more window under torch.profiler: the
+    host's launch calls around it;
 14. the fixed-step float64 truth (fixed_bdf1 with rhs.linearize) over the
     6 storm windows at 32k from a 12-hour spin-up, h = 0.5 min against
     h = 0.25 min within 1e-4 m after every window; eager f64, eager f32
@@ -194,6 +206,10 @@ FROST_C = -4.5
 # windows [m]: tests/test_driver.py:309-316 (the lake stage integrates the
 # frozen-inflow Gauss-Seidel error, hence its own bound)
 SPLIT_BAR, SPLIT_BAR_LAKE = 5e-3, 5e-2
+# the -g driver's hand route against its torch.func.jvp route at the end
+# of the storm windows [m], and each sub-linearization's J·v against
+# torch.func.jvp of its sub-RHS, scaled (tests/test_torch_split_lin.py)
+SPLIT_ROUTES_BAR, SPLIT_LIN_BAR = 1e-9, 1e-12
 # the fixed-step truth: step [min], sized so that the h and h/2 truths
 # agree within TRUTH_SELF [m] (tools/verify_trajectory.py's
 # self-convergence); each adaptive path within TRUTH_BAR [m] of it on gw
@@ -1099,6 +1115,13 @@ def phase_cli(torch) -> dict:
     return out
 
 
+def host_launch_calls(rows) -> dict:
+    """The host's launch calls the profiler saw (the runtime API rows of
+    ``(key, device us, count)``)."""
+    return {k: c for k, us, c in rows if us == 0 and (
+        "LaunchKernel" in k or "LaunchCooperative" in k or "GraphLaunch" in k)}
+
+
 def phase_profile(inp, torch, minutes: float = 10.0, start: float = 720.0,
                   **kw):
     """Where one storm interval's time goes (torch.profiler; one window
@@ -1127,9 +1150,7 @@ def phase_profile(inp, torch, minutes: float = 10.0, start: float = 720.0,
         wall = time.perf_counter() - t0
     rows = [(r.key, _self_device_us(r), r.count) for r in prof.key_averages()]
     busy_s = sum(us for _, us, _ in rows) / 1e6
-    # the host's launch calls the profiler saw (the runtime API rows)
-    host_calls = {k: c for k, us, c in rows if us == 0 and (
-        "LaunchKernel" in k or "LaunchCooperative" in k or "GraphLaunch" in k)}
+    host_calls = host_launch_calls(rows)
     top = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])[:10]
     nfe = sim.bdf.nfe - nfe0
     launches = sum(c for _, us, c in rows if us > 0)
@@ -1204,13 +1225,15 @@ def spin_up(inp, torch) -> dict:
 
 
 def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
-    """Phase 13: run_project_split (float64, the card) resumed from a -g
-    checkpoint of the spun-up state at minute 720 over the 6 storm
-    windows, one output interval a window (the time log has each window's
-    wall), against the fused float64 eager driver from the same state:
-    every block within the splitting bound (lake: its own).  No kernel of
-    the six runs on this path (float64); the counts are set to 0 just
-    before and read just after."""
+    """Phase 13: run_project_split (float64, the card: each window one
+    launch of a SplitGraph) resumed from a -g checkpoint of the spun-up
+    state at minute 720 over the 6 storm windows, one output interval a
+    window (the time log has each window's wall), one host sync a window,
+    against the fused float64 eager driver from the same state: every
+    block within the splitting bound (lake: its own); then the three
+    forms of the window (``split_forms``).  No kernel of the six runs on
+    this path (float64); the counts are set to 0 just before each part
+    and read just after."""
     import numpy as np
 
     from shud_tpu_torch.driver.uncoupled import (
@@ -1226,6 +1249,8 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
     end = 720.0 + 10.0 * STORM_WINDOWS
     ne, nr = p.tri.shape[0], p.riv.shape[0]
     nl = spun["y"].numel() - 3 * ne - nr
+    from shud_tpu_torch.solver import bdf
+
     for k in kernels:
         k.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="shud_split_") as out:
@@ -1234,12 +1259,14 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
             init_uncoupled(spun["y"], ne, nr, 720.0, spun["cfg"], nl=nl),
             spun["buckets"], 720.0))
         torch.cuda.synchronize()
+        s0 = bdf.host_syncs
         t0 = time.perf_counter()
-        st = run_project_split("synthetic", inp=p, end_day=end / 1440.0,
-                               outpath=out, verbose=False, device=DEVICE,
-                               resume=ckpt)
+        st = run_project_split("synthetic", inp=copy.deepcopy(p),
+                               end_day=end / 1440.0, outpath=out,
+                               verbose=False, device=DEVICE, resume=ckpt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        syncs = bdf.host_syncs - s0
         log_rows = np.loadtxt(os.path.join(out, "synthetic.time.csv"),
                               skiprows=1, ndmin=2)
         n_files = len(os.listdir(out))
@@ -1260,6 +1287,8 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
         + ", ".join(f"{k} {v['nsteps']} steps {v['nfe']} NFE"
                     for k, v in solvers.items()) + f"; {n_files} files")
     check(len(log_rows) == STORM_WINDOWS, f"{what}: {len(log_rows)} intervals")
+    check(syncs == STORM_WINDOWS, f"{what}: {syncs} host syncs in "
+          f"{STORM_WINDOWS} windows")
     ref = restart_at(storm_sim(inp, torch, float_dtype=torch.float64,
                                mega=False), 720.0, spun["y"],
                      spun["buckets"])
@@ -1278,10 +1307,153 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
         bar = SPLIT_BAR_LAKE if k == "lake" else SPLIT_BAR
         check(v < bar, f"{what}: -g {k} parts from the implicit driver by "
               f"{v:.3e} m (bar {bar:g})")
+    for k in kernels:
+        k.reset_launch_counts()
+    forms = split_forms(p, torch, spun, what, ne, nr, nl)
+    counts_forms = device_counts(kernels)
+    check(not any(counts_forms.values())
+          and not any(host_counts(kernels).values()),
+          f"{what}: a kernel ran in the -g forms: {counts_forms}")
     return {"wall_s": wall, "window_wall_s": per_window.tolist(),
-            "solvers": solvers, "vs_implicit_m": gaps,
+            "syncs": syncs, "solvers": solvers, "vs_implicit_m": gaps,
             "implicit_nfe": ref.bdf.nfe, "implicit_wall_s": ref_wall,
-            "launches": counts}
+            "launches": counts, "forms": forms}
+
+
+def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
+                nl: int) -> dict:
+    """Phase 13's three forms of the -g window, each a Simulation from the
+    spun-up state at minute 720 over the 6 storm windows: "graph"
+    (``SplitGraph``: each window's sweep one graph launch), "hand" (the
+    eager loop on the hand linearizations), "jvp" (the eager
+    ``torch.func.jvp`` route).  Gates: after every window the graph
+    bitwise the hand loop (states, scalars, the fetched values); at the
+    end the hand and jvp routes the same steps and NFE per sub-solver and
+    within SPLIT_ROUTES_BAR m; each sub-linearization at the graph's end
+    state: primal bitwise, J·v within SPLIT_LIN_BAR scaled of
+    torch.func.jvp.  Reported per form: wall per window (forcing and
+    sweep), host syncs a window, graph launches and the graph's set-up
+    seconds; then one more window of each under torch.profiler: the
+    host's launch calls."""
+    import functools
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from shud_tpu_torch.core.landsurface import BucketState
+    from shud_tpu_torch.driver import uncoupled as U
+    from shud_tpu_torch.driver.simulate import Simulation
+    from shud_tpu_torch.solver import bdf
+
+    cb = bool(p.control.close_boundary)
+    sims, states = {}, {}
+    for form in ("graph", "hand", "jvp"):
+        sim = Simulation.create("synthetic", inp=copy.deepcopy(p),
+                                float_dtype=torch.float64, device=DEVICE)
+        sim.buckets = BucketState(*[b.clone() for b in spun["buckets"]])
+        sim.t = 720.0
+        sims[form] = sim
+        states[form] = U.init_uncoupled(spun["y"].clone(), ne, nr, 720.0,
+                                        sim.cfg, nl=nl)
+    g = U.SplitGraph(sims["graph"].dm, sims["graph"].cfg, cb)
+    sweeps = {"graph": g.sweep}
+    for form, lin in (("hand", True), ("jvp", False)):
+        sim = sims[form]
+        sweeps[form] = functools.partial(
+            lambda s, ln, fs, cf, bk, st, t, tout: U.sweep_window(
+                s.dm, fs, cf, bk, st, t, tout, s.cfg, cb, False, ln),
+            sim, lin)
+
+    def window(form, t, tout):
+        sim = sims[form]
+        fs, cf = sim.forcing_slice(tout)
+        states[form], host = sweeps[form](fs, cf, sim.buckets, states[form],
+                                          t, tout)
+        return host
+
+    per = {f: {"wall_s": [], "syncs": []} for f in sims}
+    t = 720.0
+    for w in range(STORM_WINDOWS):
+        tout = t + 10.0
+        host = {}
+        for form in sims:
+            s0 = bdf.host_syncs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host[form] = window(form, t, tout)
+            torch.cuda.synchronize()
+            per[form]["wall_s"].append(time.perf_counter() - t0)
+            per[form]["syncs"].append(bdf.host_syncs - s0)
+        a, b = states["graph"], states["hand"]
+        check(all(same_interval(tuple(getattr(a, k)), tuple(getattr(b, k)))
+                  for k in U.PARTS if getattr(a, k) is not None)
+              and same_interval(host["graph"], host["hand"]),
+              f"{what}: the -g graph and the eager hand loop part at "
+              f"window {w}")
+        t = tout
+    parts = [k for k in U.PARTS if getattr(states["hand"], k) is not None]
+    hand, jvp = states["hand"], states["jvp"]
+    counts = {f: {k: (getattr(states[f], k).nsteps, getattr(states[f], k).nfe)
+                  for k in parts} for f in sims}
+    gap = max(float((getattr(hand, k).y - getattr(jvp, k).y).abs().max())
+              for k in parts)
+    check(counts["hand"] == counts["jvp"] and gap <= SPLIT_ROUTES_BAR,
+          f"{what}: the hand and jvp routes: {counts['hand']} vs "
+          f"{counts['jvp']}, max |dy| {gap:.3e} m")
+    check(per["graph"]["syncs"] == [1] * STORM_WINDOWS
+          and g.stats["launches"] == STORM_WINDOWS,
+          f"{what}: graph syncs {per['graph']['syncs']}, launches "
+          f"{g.stats['launches']}")
+
+    # each sub-linearization at the graph's end state, its frozen inputs
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    lin_err = {}
+    for (k, sp), f, lin in zip(g.pieces.solvers.items(), U._split_fns(cb),
+                               U._split_lins(cb)):
+        y = sp.c.y.clone()
+        v = torch.randn(y.shape, generator=gen, device=DEVICE,
+                        dtype=y.dtype)
+        dy, jv = lin(t, y, sp.params)
+        ref = torch.func.jvp(lambda yy: f(t, yy, sp.params), (y,), (v,))[1]
+        lin_err[k] = scaled_err(ref, jv(v))
+        check(torch.equal(dy, f(t, y, sp.params))
+              and lin_err[k] <= SPLIT_LIN_BAR,
+              f"{what}: linearize {k}: primal bitwise "
+              f"{torch.equal(dy, f(t, y, sp.params))}, J.v {lin_err[k]:.3e}")
+
+    gstats = {k: g.stats[k] for k in ("launches", "syncs", "warmup_s",
+                                       "capture_s", "instantiate_s",
+                                       "warmup_newton_iters")}
+    gstats["steps"] = list(g.stats["steps"])
+    # one more window of each form under the profiler
+    for form in sims:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            window(form, t, t + 10.0)
+            torch.cuda.synchronize()
+        rows = [(r.key, _self_device_us(r), r.count)
+                for r in prof.key_averages()]
+        per[form]["host_launch_calls"] = host_launch_calls(rows)
+        per[form]["device_busy_ms"] = sum(us for _, us, _ in rows) / 1e3
+    for form, r in per.items():
+        r["syncs_per_window"] = sum(r["syncs"]) / STORM_WINDOWS
+        r["graph_launches"] = gstats["launches"] if form == "graph" else 0
+        log(f"  {what} -g {form}: wall per window "
+            + ", ".join(f"{x:.4f}" for x in r["wall_s"])
+            + f" s (total {sum(r['wall_s']):.3f} s); host syncs a window "
+            f"{r['syncs_per_window']:g}; graph launches "
+            f"{r['graph_launches']}; sub-solvers "
+            + ", ".join(f"{k} {n[0]}/{n[1]}" for k, n in counts[form].items())
+            + f"; profiled window: device busy {r['device_busy_ms']:.1f} ms,"
+            f" host launch calls {r['host_launch_calls']}")
+    log(f"  {what} -g graph: warm-up {gstats['warmup_s']} s, capture "
+        f"{gstats['capture_s']} s, instantiate "
+        f"{gstats['instantiate_s']} s; bitwise the eager hand loop "
+        f"after each of {STORM_WINDOWS} windows; hand vs jvp max |dy| "
+        f"{gap:.3e} m; J.v vs torch.func.jvp " + ", ".join(
+            f"{k} {e:.2e}" for k, e in lin_err.items()))
+    g.close()
+    return {"forms": per, "graph": gstats, "solvers": counts,
+            "hand_vs_jvp_m": gap, "lin_err": lin_err}
 
 
 def restart_at(sim, t: float, y, buckets):
@@ -2173,9 +2345,13 @@ def same_interval(a, b) -> bool:
     qdowns, Newton iterations."""
     import torch
 
+    import numpy as np
+
     def eq(x, y):
         if isinstance(x, torch.Tensor):
             return x.dtype == y.dtype and torch.equal(x, y)
+        if isinstance(x, np.ndarray):
+            return x.dtype == y.dtype and np.array_equal(x, y)
         if isinstance(x, dict):
             return list(x) == list(y) and all(eq(x[k], y[k]) for k in x)
         if isinstance(x, (tuple, list)):

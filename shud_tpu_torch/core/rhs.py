@@ -783,6 +783,78 @@ def _lake_toparea_lin(m, lake_stg):
     return dta
 
 
+def _lake_bank_lin(m, sf, gw, lake_stg, cu, kh_gw):
+    """Tangent factors of ``edge_fluxes``' lake-bank edges [Ne,3]: the
+    surface weir's d/d sf and d/d lake stage, the Darcy flux's d/d gw (own
+    cell, eff_kh through *kh_gw* included), d/d gw of the neighbour's
+    eff_kh, and d/d lake stage: ``(ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk)``."""
+    lk, nb = m.lk, m.nb
+    isf = maximum(sf, 0.0)[:, None]
+    lake_nb = lake_stg[lk]
+    lake_nsf = maximum(lake_nb, 0.0)
+    c_y0, c_yj = ph.weir_flow_jtoi_local_lin(
+        lake_nsf + m.edge_lake_dzl, isf, lake_nsf, 0.6, m.edge, 0.01)
+    ls_sf = c_yj * ph.d_max(sf, 0.0)[:, None]
+    ls_lk = c_y0 * ph.d_max(lake_nb, 0.0)
+    gw_col = gw[:, None]
+    dh = (gw_col - lake_nb) + m.edge_lake_dzb
+    ym = ph.avg_y_gw(gw_col, lake_nb)
+    grad = dh / m.dist_nb
+    km = 0.5 * (cu.eff_kh[:, None] + cu.eff_kh[nb])
+    live = ~(((dh > 0.0) & (gw_col <= 0.02))
+             | ((dh < 0.0) & (lake_nb <= 0.02)))
+    B = m.edge
+    half_k = torch.where(live, 0.5 * grad * ym * B, 0.0)
+    lb_gw = torch.where(live, (km / m.dist_nb * ym + km * grad * 0.5
+                               * ph.d_max(gw, 0.0)[:, None]) * B, 0.0) \
+        + half_k * kh_gw[:, None]
+    lb_gwn = half_k * kh_gw[nb]
+    lb_lk = torch.where(live, (-km / m.dist_nb * ym + km * grad * 0.5
+                               * ph.d_max(lake_nb, 0.0)) * B, 0.0)
+    return ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk
+
+
+def _reach_lin(m, rs, r_csa, r_per, r_hyd, s_down, s_out):
+    """Tangent factors of each reach's downstream discharge at the stage
+    *rs* (Manning down the chain, the outlets' zero-depth-gradient and
+    critical-depth laws, to-lake reaches): ``(csa_rs, p_self, p_dn)`` with
+    d csa / d rs and ``t_down = p_self·t_rs + p_dn·t_rs[down]``."""
+    bs, bw = m.riv_bank_slope, m.riv_bottom_width
+    csa_rs = ph.d_max(rs * (bw + rs * bs), 0.0) * (bw + 2.0 * rs * bs)
+    root = torch.sqrt(1.0 + bs**2)
+    per_rs = (ph.d_max(2.0 * ph.absolute(rs) * root + bw, 0.0)
+              * 2.0 * ph.d_abs(rs) * root)
+    small = r_per <= ZERO
+    psafe = torch.where(small, 1.0, r_per)
+    hyd_rs = torch.where(small, 0.0, (csa_rs - r_hyd * per_rs) / psafe)
+    rough = m.riv_avg_rough
+    has_down = m.riv_down >= 0
+    ma, mr, ms = ph.manning_equation_lin(r_csa, rough, r_hyd, s_down)
+    int_dn = -ms / m.riv_dist2down
+    int_self = ma * csa_rs + mr * hyd_rs - int_dn
+    za, zr, zs = ph.manning_equation_lin(r_csa, rough, r_hyd, s_out)
+    zdg = za * csa_rs + zr * hyd_rs + zs * 2.0 / m.riv_length
+    sq = torch.sqrt(GRAV * maximum(rs, 1e-30))
+    crit = (csa_rs * sq + r_csa * (GRAV * ph.d_max(rs, 1e-30)) / (2.0 * sq)) \
+        * 60.0
+    to_lake = m.riv_to_lake >= 0
+    p_self = torch.where(to_lake, zdg, torch.where(
+        has_down, int_self,
+        torch.where(m.riv_outlet_code == -4, crit, zdg)))
+    p_dn = torch.where(~to_lake & has_down, int_dn, 0.0)
+    return csa_rs, p_self, p_dn
+
+
+def _lake_lin(m, lake_stg, ev_raw, prcp, inflow, area):
+    """d(lake budget)/d(lake stage) apart from the inflows' own tangents:
+    the evaporation clamp (min, then max) and the division by the
+    bathymetry's top area (*inflow* the summed inflows, *area* the area)."""
+    y_cap = prcp + lake_stg
+    evap_lk = (ph.d_max(torch.minimum(ev_raw, y_cap), 0.0)
+               * ph.d_min(y_cap, ev_raw))
+    return -evap_lk - inflow / (area * area) * _lake_toparea_lin(m, lake_stg)
+
+
 def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
     """The factors of ``linearize`` and the J·v closure over them."""
     ne, nr = m.num_ele, m.num_riv
@@ -814,28 +886,8 @@ def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
     # --- lake-bank edges, merged by mask (no fu_sub on their lake sums) ---
     if nl > 0:
         has_lake, lk, nb = m.has_lake, m.lk, m.nb
-        isf = maximum(sf, 0.0)[:, None]
-        lake_nb = s["lake_stg"][lk]
-        lake_nsf = maximum(lake_nb, 0.0)
-        c_y0, c_yj = ph.weir_flow_jtoi_local_lin(
-            lake_nsf + m.edge_lake_dzl, isf, lake_nsf, 0.6, m.edge, 0.01)
-        ls_sf = c_yj * ph.d_max(sf, 0.0)[:, None]
-        ls_lk = c_y0 * ph.d_max(lake_nb, 0.0)
-        gw_col = gw[:, None]
-        dh = (gw_col - lake_nb) + m.edge_lake_dzb
-        ym = ph.avg_y_gw(gw_col, lake_nb)
-        grad = dh / m.dist_nb
-        km = 0.5 * (cu.eff_kh[:, None] + cu.eff_kh[nb])
-        live = ~(((dh > 0.0) & (gw_col <= 0.02))
-                 | ((dh < 0.0) & (lake_nb <= 0.02)))
-        B = m.edge
-        half_k = torch.where(live, 0.5 * grad * ym * B, 0.0)
-        lb_gw = torch.where(live, (km / m.dist_nb * ym + km * grad * 0.5
-                                   * ph.d_max(gw, 0.0)[:, None]) * B, 0.0) \
-            + half_k * kh_gw[:, None]
-        lb_gwn = half_k * kh_gw[nb]
-        lb_lk = torch.where(live, (-km / m.dist_nb * ym + km * grad * 0.5
-                                   * ph.d_max(lake_nb, 0.0)) * B, 0.0)
+        ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk = _lake_bank_lin(
+            m, sf, gw, s["lake_stg"], cu, kh_gw)
         lake_edge = has_lake & ~is_lake_cell[:, None]
 
     # --- segments: d q_seg_surf, d q_seg_sub on the gathered tangents ---
@@ -857,50 +909,25 @@ def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
     sb_gw = (r_ye + r_k * kh_gw[se]) * fu_seg
 
     # --- reaches: geometry, Manning down the chain, outlets ---
-    bs, bw = m.riv_bank_slope, m.riv_bottom_width
-    topw_rs = ph.d_max(rs * bs * 2.0 + bw, 0.0) * (bs * 2.0)
-    csa_rs = ph.d_max(rs * (bw + rs * bs), 0.0) * (bw + 2.0 * rs * bs)
-    root = torch.sqrt(1.0 + bs**2)
-    per_rs = (ph.d_max(2.0 * ph.absolute(rs) * root + bw, 0.0)
-              * 2.0 * ph.d_abs(rs) * root)
-    r_csa, r_per, r_hyd = s["r_csa"], s["r_per"], s["r_hyd"]
-    small = r_per <= ZERO
-    psafe = torch.where(small, 1.0, r_per)
-    hyd_rs = torch.where(small, 0.0, (csa_rs - r_hyd * per_rs) / psafe)
-    rough = m.riv_avg_rough
-    has_down = m.riv_down >= 0
-    dn = torch.where(has_down, m.riv_down, 0)
-    ma, mr, ms = ph.manning_equation_lin(r_csa, rough, r_hyd, s["s_down"])
-    int_dn = -ms / m.riv_dist2down
-    int_self = ma * csa_rs + mr * hyd_rs - int_dn
-    za, zr, zs = ph.manning_equation_lin(r_csa, rough, r_hyd, s["s_out"])
-    zdg = za * csa_rs + zr * hyd_rs + zs * 2.0 / m.riv_length
-    sq = torch.sqrt(GRAV * maximum(rs, 1e-30))
-    crit = (csa_rs * sq + r_csa * (GRAV * ph.d_max(rs, 1e-30)) / (2.0 * sq)) \
-        * 60.0
-    to_lake = m.riv_to_lake >= 0
-    p_self = torch.where(to_lake, zdg, torch.where(
-        has_down, int_self,
-        torch.where(m.riv_outlet_code == -4, crit, zdg)))
-    p_dn = torch.where(~to_lake & has_down, int_dn, 0.0)
+    bs = m.riv_bank_slope
+    topw_rs = ph.d_max(rs * bs * 2.0 + m.riv_bottom_width, 0.0) * (bs * 2.0)
+    csa_rs, p_self, p_dn = _reach_lin(m, rs, s["r_csa"], s["r_per"],
+                                      s["r_hyd"], s["s_down"], s["s_out"])
+    dn = torch.where(m.riv_down >= 0, m.riv_down, 0)
     # d_area = maximum(d_area_raw, -r_csa), then the dA -> dy quadratic
-    da_raw, floor = s["d_area_raw"], -r_csa
+    da_raw, floor = s["d_area_raw"], -s["r_csa"]
     f_da, f_w = ph.fun_da_to_dy_lin(s["d_area"], s["r_topw"], bs)
     dr_area = keep_rs * f_da * ph.d_max(da_raw, floor) / m.riv_length
     dr_rs = keep_rs * (f_w * topw_rs - f_da * ph.d_max(floor, da_raw) * csa_rs)
 
     # --- lakes: evaporation clamp, bathymetry, the bucket's division ---
     if nl > 0:
-        lake_stg = s["lake_stg"]
-        ev_raw, prcp = s["q_lake_evap_raw"], s["q_lake_prcp"]
-        y_cap = prcp + lake_stg
-        evap_lk = (ph.d_max(torch.minimum(ev_raw, y_cap), 0.0)
-                   * ph.d_min(y_cap, ev_raw))
         area = s["lake_area"]
-        inflow = s["q_lake_rivin"] + s["q_lake_sub"] + s["q_lake_surf"]
         inv_area = 1.0 / area
-        c_lk = -evap_lk - inflow / (area * area) * _lake_toparea_lin(m,
-                                                                    lake_stg)
+        c_lk = _lake_lin(m, s["lake_stg"], s["q_lake_evap_raw"],
+                         s["q_lake_prcp"],
+                         s["q_lake_rivin"] + s["q_lake_sub"]
+                         + s["q_lake_surf"], area)
 
     apply = (edge_mod.edge_apply if _on_kernels(m, sf)
              else edge_mod.edge_apply_plain)

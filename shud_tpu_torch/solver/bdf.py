@@ -27,8 +27,9 @@ a whole window, or an output interval of windows, from the card with no
 host in the loop (the JAX solver's ``lax.while_loop``).  ``solve_to`` runs
 them in a host loop that reads its two conditions (another Newton
 iteration, another step) from the device: the CPU's route, and on the
-card that of the drivers that do not capture (``-g``, sharded).  ``host_syncs`` counts its device reads,
-``newton_iters`` the Newton iterations, read from the carry.  Within a
+card that of the drivers that do not capture (sharded) and of the eager
+forms.  ``host_syncs`` counts its device reads, ``newton_iters`` the
+Newton iterations, read from the carry.  Within a
 window the RHS is autonomous (the driver freezes the forcing slice, as
 the reference refreshes forcing only between CVode calls,
 ``shud.cpp:91-155``).

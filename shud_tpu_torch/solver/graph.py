@@ -239,14 +239,18 @@ class SolverPieces:
     parameters the RHS reads are static too.  ``pieces`` and ``nodes``
     are the solve as a ``Program``'s parts: ``head``, WHILE(active)
     {``begin``, Newton iterations 2..``newton_iters`` under nested IFs,
-    ``end`` (which runs ``head`` again)}, ``tail``."""
+    ``end`` (which runs ``head`` again)}, ``tail``.  *prefix* names the
+    pieces (several solvers in one program); *tout* is a 0-d buffer that
+    several solvers may share (else one of its own)."""
 
     def __init__(self, rhs, lin, cfg: SolverConfig, quad_fn, params,
-                 c: Carry):
+                 c: Carry, prefix: str = "", tout=None):
         self.rhs, self.lin, self.cfg = rhs, lin, cfg
         self.quad_fn, self.params, self.c = quad_fn, params, c
+        self.prefix = prefix
         dev = c.y.device
-        self.tout = torch.zeros((), dtype=c.t.dtype, device=dev)
+        self.tout = (torch.zeros((), dtype=c.t.dtype, device=dev)
+                     if tout is None else tout)
         self.nsteps0 = torch.zeros((), dtype=torch.int64, device=dev)
         self.active = torch.zeros((), dtype=torch.bool, device=dev)
         self.packed = torch.zeros(len(STEPS) + len(COUNTS) + 1,
@@ -255,6 +259,13 @@ class SolverPieces:
 
     def head(self):
         self.active.copy_(active(self.c, self.tout, self.nsteps0, self.cfg))
+
+    def start(self):
+        """A window's resets on the device (the step count at its start,
+        the Newton iterations zeroed), then ``head``."""
+        self.nsteps0.copy_(self.c.nsteps)
+        self.c.nni.zero_()
+        self.head()
 
     def begin(self):
         self.plan, self.nw = step_begin(self.rhs, self.lin, self.c,
@@ -274,7 +285,9 @@ class SolverPieces:
                                      self.active.double()[None]]))
 
     def pieces(self) -> dict:
-        return {"begin": self.begin, "newton": self.newton, "end": self.end}
+        p = self.prefix
+        return {p + "begin": self.begin, p + "newton": self.newton,
+                p + "end": self.end}
 
     def loop(self) -> While:
         """The step loop, the window's ``lax.while_loop``."""
@@ -282,10 +295,11 @@ class SolverPieces:
         # iterations 2..newton_iters, each inside the IF of the last
         # (built from the innermost out: no recursive closure, whose cycle
         # would keep these buffers alive after the graph is dropped)
+        p = self.prefix
         chain = ()
         for _ in range(self.cfg.newton_iters - 1):
-            chain = (If(lambda: self.nw.more, ("newton", *chain)),)
-        return While(lambda: self.active, ("begin", *chain, "end"))
+            chain = (If(lambda: self.nw.more, (p + "newton", *chain)),)
+        return While(lambda: self.active, (p + "begin", *chain, p + "end"))
 
     def result(self, has_quad: bool) -> BDFState:
         """The carry as a ``BDFState`` of copies (one host read of the

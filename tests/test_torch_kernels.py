@@ -11,7 +11,9 @@ output bitwise equal across two calls and to its plain version; each
 mega kernel is one device launch per call and refuses a grid the card
 cannot hold.  The sharded RHS (2 gloo ranks on the card, 32,768 cells):
 dY through edge_flux bitwise its plain path's, the coefficient path's dY
-and the hand J·v (edge_coeff, edge_apply) within 1e-6 scaled.
+and the hand J·v (edge_coeff, edge_apply) within 1e-6 scaled.  The
+captured programs (WindowGraph, IntervalGraph, the -g driver's
+SplitGraph) bitwise their eager loops.
 """
 
 import numpy as np
@@ -407,6 +409,8 @@ def _same(a, b, what):
     """Two trees of tensors and host numbers equal, bit for bit."""
     if isinstance(a, torch.Tensor):
         assert a.dtype == b.dtype and torch.equal(a, b), what
+    elif isinstance(a, np.ndarray):
+        assert a.dtype == b.dtype and np.array_equal(a, b), what
     elif isinstance(a, (dict, tuple, list)):
         assert len(a) == len(b), what
         keys = list(a) if isinstance(a, dict) else range(len(a))
@@ -462,3 +466,57 @@ def test_interval_graph_matches_window_replay(mega):
     counts = {**edge.device_launch_counts(), **M.device_launch_counts()}
     # the three forms' windows, and the interval graph's warm-up window
     assert counts[diag] == 3 * 15 + 1
+
+
+@pytest.mark.parametrize("with_lake", (False, True))
+def test_split_graph_matches_eager_loop(with_lake):
+    """The -g driver's window on the card: each window's sweep (five
+    sub-solves on the hand linearizations, the window's values) one launch
+    of a captured SplitGraph, bitwise the eager loop (``sweep_window``)
+    over 3 storm windows in every sub-state, its scalars and the fetched
+    values; one graph launch and one host read a window; no kernel of the
+    six runs (float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs)")
+    from torch_variants import make_project
+
+    from shud_tpu_torch.core import edge
+    from shud_tpu_torch.core import mega as M
+    from shud_tpu_torch.driver import uncoupled as U
+    from shud_tpu_torch.driver.simulate import Simulation
+    from shud_tpu_torch.solver import bdf
+
+    inp = make_project("torch", "lake" if with_lake else "plain", 24, 16, 1.0)
+    inp.forc.t_min = [t - 720.0 for t in inp.forc.t_min]  # the storm
+    inp.control.day_start = 0.5
+    sim = Simulation.create("synthetic", inp=inp, float_dtype=torch.float64,
+                            device="cuda")
+    ne, nr, nl = sim.md.num_ele, sim.md.num_riv, sim.md.num_lake
+    y0 = sim.bdf.y.clone()
+    y0[:ne] = torch.as_tensor(
+        np.random.default_rng(0).uniform(0.0, 1e-3, ne), device="cuda")
+    ua = ub = U.init_uncoupled(y0, ne, nr, sim.t, sim.cfg, nl=nl)
+    g = U.SplitGraph(sim.dm, sim.cfg)
+    for k in (edge, M):
+        k.reset_launch_counts()
+    t = sim.t
+    for w in range(3):
+        tout = t + 10.0
+        fs, cf = sim.forcing_slice(tout)
+        ua, ha = U.sweep_window(sim.dm, fs, cf, sim.buckets, ua, t, tout,
+                                sim.cfg)
+        s0 = bdf.host_syncs
+        ub, hb = g.sweep(fs, cf, sim.buckets, ub, t, tout)
+        assert bdf.host_syncs - s0 == 1
+        t = tout
+        for part in U.PARTS:
+            a, b = getattr(ua, part), getattr(ub, part)
+            assert (a is None) == (b is None), part
+            if a is not None:
+                _same(tuple(a), tuple(b), f"window {w} {part}")
+        _same(ha, hb, f"window {w} values")
+    assert (ub.lake is not None) == with_lake and ub.surf.nsteps > 3
+    assert g.capture and g.stats["launches"] == g.stats["syncs"] == 3
+    torch.cuda.synchronize()
+    counts = {**edge.device_launch_counts(), **M.device_launch_counts()}
+    assert not any(counts.values()), counts

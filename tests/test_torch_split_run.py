@@ -9,6 +9,8 @@
   JAX package's tests/test_driver.py:323-343, cut from 12 hours with the
   checkpoint at 6 to 2 hours with the checkpoint at 1);
 * a JAX ``-g`` checkpoint resumes in the port and reaches JAX's states;
+* the run through ``SplitGraph``'s program (``captured=True``; on the CPU
+  its pieces run eagerly) writes the eager loop's files byte for byte;
 * device and frozen-ground refusals.
 """
 
@@ -122,6 +124,44 @@ def test_jax_split_checkpoint_resumes_in_port(tmp_path):
         assert {"bdf/lake/y", "bdf/surf/nfe", "buckets/snow"} <= set(za.files)
         for k in za.files:
             assert za[k].dtype == zb[k].dtype and za[k].shape == zb[k].shape, k
+
+
+def test_split_program_writes_eager_files(tmp_path):
+    """``run_project_split(captured=True)`` (a ``SplitGraph`` a run, one
+    program launch and one host read a window) against the eager loop
+    (``captured=False``, the CPU's default) on ``_twin()``: every file
+    byte-equal, but for the time log's CPU and wall seconds (its time,
+    progress and NFE columns equal), and the same final states."""
+    from shud_tpu_torch.solver import bdf
+
+    # one output path for both (the project file names it), moved aside
+    out = str(tmp_path / "out")
+    dirs = {c: str(tmp_path / str(c)) for c in (True, False)}
+    states, syncs = {}, {}
+    for c, d in dirs.items():
+        s0 = bdf.host_syncs
+        states[c] = run_project_split("synthetic", inp=_twin(), outpath=out,
+                                      verbose=False, device="cpu",
+                                      captured=c)
+        syncs[c] = bdf.host_syncs - s0
+        os.rename(out, d)
+    n_windows = 360 // 10
+    assert syncs[True] == n_windows < syncs[False]
+    files = sorted(os.listdir(dirs[True]))
+    assert files == sorted(os.listdir(dirs[False])) and len(files) > 10
+    for name in files:
+        a, b = (os.path.join(dirs[c], name) for c in (True, False))
+        if name.endswith(".time.csv"):
+            ra, rb = (np.loadtxt(x, skiprows=1, ndmin=2) for x in (a, b))
+            keep = [0, 1, 2, 5]  # minutes, days, progress, NFE
+            assert np.array_equal(ra[:, keep], rb[:, keep]), name
+            continue
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), name
+    for k in ("surf", "unsat", "gw", "riv", "lake"):
+        x, y = getattr(states[True], k), getattr(states[False], k)
+        assert (x.nsteps, x.nfe) == (y.nsteps, y.nfe), k
+        assert torch.equal(x.y, y.y), k
 
 
 def test_split_refusals(monkeypatch):
