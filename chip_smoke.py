@@ -4,7 +4,9 @@
     python3 chip_smoke.py                   # the main-path runs below
     python3 chip_smoke.py --sim-minutes 60  # shorter main-path runs
 
-Two paths, both run_project_fast in float32 on the card: the megakernel
+Two paths, both run_project_fast in float32 on the card (the solver's step
+and Newton-Krylov body on the four kernels of csrc/bdf.cu between the
+library's dot products and sums): the megakernel
 path at 32,768 cells for one simulated day (one kernel call per RHS, J·v
 and diagnostics, csrc/mega.cu) and the edge-flux path at 131,072 cells
 over the storm's first six hours (eager RHS with the edge trio,
@@ -39,7 +41,10 @@ and the script exits nonzero; nothing falls back to the CPU):
     mega vs eager at 32k, and the J·v as the solver calls it
     (linearize_mega) beside torch.func.jvp of rhs_mega;
  7. each main path with every launch count set to 0 just before and read
-    just after: at 131k edge_coeff once per Newton iteration, edge_apply
+    just after (the solver kernels on both: per step one bdf_begin and one
+    step end, per Newton iteration one Newton tail, 1 + m + m(m+1)/2
+    krylov_axpy and m + 1 krylov_column; the graph's warm-up one step of
+    two iterations): at 131k edge_coeff once per Newton iteration, edge_apply
     krylov_m times and edge_flux once a window (the diagnostics; the run
     has no water-balance quadrature), no mega kernel; at 32k the mega
     trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
@@ -64,22 +69,28 @@ and the script exits nonzero; nothing falls back to the CPU):
 10. the per-window driver (Simulation.advance_window) at 131k over 6
     storm windows beside FusedSimulation: within 2e-5 m, NFE within 2%;
     its captured solve (a WindowGraph a window) bitwise its eager loop
-    (Simulation.create(captured=False));
+    (Simulation.create(captured=False)) and its captured solve on the
+    solver's torch pieces (solver_kernel=False), with equal steps, NFE and
+    Newton iterations after every window;
 11. the command line in fresh processes: python -m shud_tpu_torch -h
     exits 0, -g --f32 exits nonzero (-g runs float64 only);
 12. one storm window of each path under torch.profiler, captured (an
-    interval graph of one window) and eager: device busy time, idle share,
+    interval graph of one window) and eager, and captured on the solver's
+    torch pieces (solver_kernel=False): device busy time, idle share,
     launches per NFE, mega kernel launches per NFE, the host's launch
-    calls (reported, not checked);
+    calls (reported; the captured mega-32k window at most 30 device
+    launches a NFE);
 13. the operator-split driver (run_project_split, -g, float64) over the 6
     storm windows at 32k and on the lake mesh against the fused float64
     eager driver: every block within 5e-3 m (the lake stage 5e-2 m); the
     sub-solvers' steps and NFE, the wall per window, one host sync a
-    window; no kernel launched.  Then the -g window in three forms in one
-    process over the same windows: the graph (each window's sweep one
-    launch of a captured SplitGraph, the default), the eager loop on the
-    hand linearizations, the eager torch.func.jvp route: after every
-    window the graph bitwise the eager hand loop (every sub-state, its
+    window; no kernel of the six launched, each solver kernel launched.
+    Then the -g window in four forms in one process over the same windows:
+    the graph (each window's sweep one launch of a captured SplitGraph,
+    the default), the same graph on the solver's torch pieces
+    (solver_kernel=False), the eager loop on the hand linearizations, the
+    eager torch.func.jvp route: after every window the graph bitwise the
+    torch pieces' graph and the eager hand loop (every sub-state, its
     scalars, the fetched values); the hand and jvp routes the same steps
     and NFE per sub-solver and within 1e-9 m at the end; each
     sub-linearization's primal bitwise its sub-RHS and its J·v within
@@ -126,17 +137,29 @@ and the script exits nonzero; nothing falls back to the CPU):
     NFE and Newton iterations after every window; host syncs, graph
     launches and steps per window, warm-up, capture and instantiation
     seconds, each path's wall;
-20. the interval graph against the per-window replay (captured="window")
-    and the eager loop over the mega-32k day (2-hour intervals),
+20. the interval graph against the per-window replay (captured="window"),
+    the eager loop and the interval graph on the solver's torch pieces
+    (solver_kernel=False) over the mega-32k day (2-hour intervals),
     edge-131k's minutes 720-1080 (1-hour intervals) and frost-32k (an
     hour from minute 710, then a short interval of one window): after
     every interval bitwise equal states, buckets, means, stages and
     qdowns, equal steps, NFE and Newton iterations; one graph launch and
     one host sync an interval; the device counters (mega_diag or
-    edge_flux = windows, plus the interval graph's warm-up window); each
-    form's wall, warm-up, capture and instantiation seconds; one interval
-    under torch.profiler: the host launches no kernel outside the graph.
-The line before the last is a JSON object of the six kernels; the last is
+    edge_flux = windows, plus the interval graph's warm-up window; the
+    solver kernels as in 7, none on the torch pieces); each form's wall,
+    warm-up, capture and instantiation seconds; one interval under
+    torch.profiler: the host launches no kernel outside the graph;
+21. the solver's four kernels (csrc/bdf.cu: bdf_begin, krylov_axpy,
+    krylov_column, bdf_finish) against their plain versions at the main
+    paths' state sizes (98,432 and 393,472 entries) in float32 and
+    float64, every case of tests/torch_variants.solver_kernel_cases: each
+    output bitwise, each call one device launch; each kernel's time per
+    call, device time, cold L2 against its bound (its vectors once over
+    3.35 TB/s), its plain version's; the reductions kept as library calls
+    (torch.dot, torch.sum; torch.dot(out=) beside it), per call and in the
+    device nodes of one captured call; phase 20 also counts the nodes of
+    each captured piece of the interval graph on both routes.
+The line before the last is a JSON object of the ten kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -168,6 +191,21 @@ MEGA_REPLACES = {
     "mega_jvp": "shud_tpu/core/pallas_mega.py:1478",
     "mega_diag": "shud_tpu/core/pallas_mega.py:1461",
 }
+# the solver's body between its reductions: JAX's _gmres, _newton and
+# step_body, which XLA fuses (no Pallas kernel)
+SOLVER_SOURCE = "shud_tpu_torch/csrc/bdf.cu"
+SOLVER_REPLACES = dict.fromkeys(
+    ("bdf_begin", "krylov_axpy", "krylov_column", "bdf_finish"),
+    "shud_tpu/solver/bdf.py:112,168,237")
+# phase 21's case of each solver kernel whose times stand in the kernels
+# line: the main paths' most frequent form of each
+SOLVER_TIMED = {"bdf_begin": "history=True max_order=2 order=2 tout=+20.0",
+                "krylov_axpy": "gram_schmidt",
+                "krylov_column": "last, m 3",
+                "bdf_finish": "step, accepted"}
+# phase 12's captured mega-32k storm window: device kernels a NFE at most,
+# the window's head and tail included
+MEGA_LAUNCHES_PER_NFE = 30
 # device kernel launches per call: one cooperative launch of the fused
 # kernel each (csrc/mega.cu)
 MEGA_DEVICE_LAUNCHES = {"mega_rhs": 1, "mega_jvp": 1, "mega_diag": 1}
@@ -229,6 +267,7 @@ FLUSH_BYTES = 64 << 20
 # the bound: NVIDIA's published H100 SXM peaks at 700 W
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # outside the tensor cores
 # f32 operations (one per add, multiply, divide, compare-and-select, square
 # root or transcendental) per entity, counted from the sources: per edge
 # for the edge kernels (edge_flux.cu), per cell (its pointwise physics,
@@ -410,6 +449,32 @@ def _self_device_us(row) -> float:
                          getattr(row, "self_cuda_time_total", 0.0)) or 0.0)
 
 
+def graph_nodes(torch, fn) -> dict:
+    """The device nodes one captured call of *fn* adds, by type (kernel,
+    copy, memset, other): its warm-up on the side stream, then a capture
+    counted through the CUDA runtime (csrc/graph.cu)."""
+    import ctypes
+
+    from shud_tpu_torch.core.cuda_build import load_library
+    from shud_tpu_torch.solver.graph import _side_stream
+
+    dev = torch.device(DEVICE, torch.cuda.current_device())
+    side = _side_stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    n = (ctypes.c_ulonglong * 4)()
+    err = load_library().shud_graph_node_types(
+        ctypes.c_void_p(g.raw_cuda_graph()), n)
+    check(err == 0, f"counting a graph's nodes: CUDA error {err}")
+    return dict(zip(("kernel", "copy", "memset", "other"), n))
+
+
 def storm_project(nx: int, ny: int, end_day: float, with_lake=False,
                   localize=True):
     """The synthetic watershed with the forcing shifted half a day earlier,
@@ -531,13 +596,13 @@ def phase_kernels(md, torch, edge, results, device_times):
 
 
 def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
-          device_times):
+          device_times, ops_per_s: float = F32_OPS_PER_S):
     """Time a kernel's wrapper and its plain version (CUDA events and
     profiler device time) and record them beside the kernel's bound."""
     ms, plain_ms = time_ms(kern), time_ms(plain)
     dev_ms, dev_launches = device_per_call(kern)
     dev_plain_ms, _ = device_per_call(plain)
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    bound_ms, bound_by = bound(n_bytes, n_ops, ops_per_s)
     # events around one launch also hold the device's launch latency
     # (~4 us), so the cold kernel alone is its profiler time plus the
     # cold-minus-warm difference of the events
@@ -647,10 +712,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the f32 peak (3.35 TB/s, 67 TFLOP/s)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    and the operations over the peak of their type (3.35 TB/s, 67 TFLOP/s
+    in f32)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1006,23 +1072,28 @@ def phase_paths(inp, torch, paths: dict, gated: dict, what: str,
     |dy| < 2e-5 m after every window; a pair gated with the name of
     another pair only after the windows where that pair (the reference
     path in float32 and float64) is itself within 2e-5 m; each pair in
-    *bitwise* to equal states.  NFE of each path within 2% of the kernel
-    path's.  Wall and cell-steps/s of each; then (*repeat*) one window
-    twice on the kernel path, bitwise identical.  *after(sims)* adds its
-    dict of checks to the result."""
+    *bitwise* to equal states, steps, NFE and Newton iterations.  NFE of
+    each path within 2% of the kernel path's.  Wall and cell-steps/s of
+    each; then (*repeat*) one window twice on the kernel path, bitwise
+    identical.  *after(sims)* adds its dict of checks to the result."""
+    from shud_tpu_torch.solver import bdf
+
     sims = {n: storm_sim(inp, torch, start=start, **kw)
             for n, kw in paths.items()}
     names = list(sims)
     pairs = [(a, b) for i, a in enumerate(names) for b in names[i + 1:]]
     walls = dict.fromkeys(names, 0.0)
+    iters = dict.fromkeys(names, 0)
     windows = []
     for w in range(n_windows):
         for name, sim in sims.items():
+            i0 = bdf.newton_iters
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             advance(sim, 10.0)
             torch.cuda.synchronize()
             walls[name] += time.perf_counter() - t0
+            iters[name] += bdf.newton_iters - i0
         gaps = {f"{a}-{b}": max_gap(sims[a], sims[b]) for a, b in pairs}
         log(f"  {what}, window {w}: max |dy| " + ", ".join(
             f"{k} {g:.3e} m ({blk} {i})" for k, (g, blk, i) in gaps.items()))
@@ -1034,11 +1105,14 @@ def phase_paths(inp, torch, paths: dict, gated: dict, what: str,
                   f"{what}: {pair} parts by {gaps[pair][0]:.3e} m "
                   f"(window {w})")
         for a, b in bitwise:
-            check(torch.equal(sims[a].bdf.y, sims[b].bdf.y),
-                  f"{what}: {a} and {b} not bitwise equal (window {w})")
+            check(same_interval(tuple(sims[a].bdf), tuple(sims[b].bdf))
+                  and iters[a] == iters[b],
+                  f"{what}: {a} and {b} not bitwise equal, or their steps, "
+                  f"NFE or Newton iterations differ (window {w})")
         windows.append({k: g[0] for k, g in gaps.items()})
     kernel = sims[names[0]]
     out = {n: {"wall_s": walls[n], "nfe": s.bdf.nfe,
+               "newton_iters": iters[n],
                "cell_steps_per_s": s.md.num_ele * s.bdf.nfe / walls[n]}
            for n, s in sims.items()}
     log(f"  {what}: nfe " + ", ".join(f"{n} {o['nfe']}" for n, o in out.items())
@@ -1230,10 +1304,11 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
     state at minute 720 over the 6 storm windows, one output interval a
     window (the time log has each window's wall), one host sync a window,
     against the fused float64 eager driver from the same state: every
-    block within the splitting bound (lake: its own); then the three
+    block within the splitting bound (lake: its own); then the four
     forms of the window (``split_forms``).  No kernel of the six runs on
     this path (float64); the counts are set to 0 just before each part
-    and read just after."""
+    and read just after.  The solver kernels do (float64): the run
+    launches each of them."""
     import numpy as np
 
     from shud_tpu_torch.driver.uncoupled import (
@@ -1250,8 +1325,9 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
     ne, nr = p.tri.shape[0], p.riv.shape[0]
     nl = spun["y"].numel() - 3 * ne - nr
     from shud_tpu_torch.solver import bdf
+    from shud_tpu_torch.solver import kernels as solver
 
-    for k in kernels:
+    for k in (*kernels, solver):
         k.reset_launch_counts()
     with tempfile.TemporaryDirectory(prefix="shud_split_") as out:
         ckpt = os.path.join(out, "spun.ckpt.npz")
@@ -1273,6 +1349,9 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
     counts = device_counts(kernels)
     check(not any(counts.values()) and not any(host_counts(kernels).values()),
           f"{what}: a kernel ran on -g: {counts}")
+    solver_counts = solver.device_launch_counts()
+    check(all(solver_counts.values()),
+          f"{what}: the solver kernels on -g: {solver_counts}")
     parts = {k: getattr(st, k) for k in ("surf", "unsat", "gw", "riv", "lake")
              if getattr(st, k) is not None}
     check(("lake" in parts) == bool(nl), f"{what}: lake sub-solve")
@@ -1316,18 +1395,21 @@ def phase_split(inp, torch, kernels, what: str, spun: dict) -> dict:
           f"{what}: a kernel ran in the -g forms: {counts_forms}")
     return {"wall_s": wall, "window_wall_s": per_window.tolist(),
             "syncs": syncs, "solvers": solvers, "vs_implicit_m": gaps,
+            "solver_launches": solver_counts,
             "implicit_nfe": ref.bdf.nfe, "implicit_wall_s": ref_wall,
             "launches": counts, "forms": forms}
 
 
 def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
                 nl: int) -> dict:
-    """Phase 13's three forms of the -g window, each a Simulation from the
+    """Phase 13's four forms of the -g window, each a Simulation from the
     spun-up state at minute 720 over the 6 storm windows: "graph"
-    (``SplitGraph``: each window's sweep one graph launch), "hand" (the
-    eager loop on the hand linearizations), "jvp" (the eager
-    ``torch.func.jvp`` route).  Gates: after every window the graph
-    bitwise the hand loop (states, scalars, the fetched values); at the
+    (``SplitGraph``: each window's sweep one graph launch, on the solver
+    kernels), "torch" (the same graph on the solver's torch pieces,
+    ``solver_kernel=False``), "hand" (the eager loop on the hand
+    linearizations), "jvp" (the eager ``torch.func.jvp`` route).  Gates:
+    after every window the graph bitwise the torch pieces' graph and the
+    hand loop (states, scalars, the fetched values); at the
     end the hand and jvp routes the same steps and NFE per sub-solver and
     within SPLIT_ROUTES_BAR m; each sub-linearization at the graph's end
     state: primal bitwise, J·v within SPLIT_LIN_BAR scaled of
@@ -1346,7 +1428,7 @@ def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
 
     cb = bool(p.control.close_boundary)
     sims, states = {}, {}
-    for form in ("graph", "hand", "jvp"):
+    for form in ("graph", "torch", "hand", "jvp"):
         sim = Simulation.create("synthetic", inp=copy.deepcopy(p),
                                 float_dtype=torch.float64, device=DEVICE)
         sim.buckets = BucketState(*[b.clone() for b in spun["buckets"]])
@@ -1355,7 +1437,9 @@ def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
         states[form] = U.init_uncoupled(spun["y"].clone(), ne, nr, 720.0,
                                         sim.cfg, nl=nl)
     g = U.SplitGraph(sims["graph"].dm, sims["graph"].cfg, cb)
-    sweeps = {"graph": g.sweep}
+    g_torch = U.SplitGraph(sims["torch"].dm, sims["torch"].cfg, cb,
+                           solver_kernel=False)
+    sweeps = {"graph": g.sweep, "torch": g_torch.sweep}
     for form, lin in (("hand", True), ("jvp", False)):
         sim = sims[form]
         sweeps[form] = functools.partial(
@@ -1383,12 +1467,15 @@ def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
             torch.cuda.synchronize()
             per[form]["wall_s"].append(time.perf_counter() - t0)
             per[form]["syncs"].append(bdf.host_syncs - s0)
-        a, b = states["graph"], states["hand"]
-        check(all(same_interval(tuple(getattr(a, k)), tuple(getattr(b, k)))
-                  for k in U.PARTS if getattr(a, k) is not None)
-              and same_interval(host["graph"], host["hand"]),
-              f"{what}: the -g graph and the eager hand loop part at "
-              f"window {w}")
+        a = states["graph"]
+        for form, label in (("hand", "eager hand loop"),
+                            ("torch", "graph on the torch pieces")):
+            b = states[form]
+            check(all(same_interval(tuple(getattr(a, k)),
+                                    tuple(getattr(b, k)))
+                      for k in U.PARTS if getattr(a, k) is not None)
+                  and same_interval(host["graph"], host[form]),
+                  f"{what}: the -g graph and the {label} part at window {w}")
         t = tout
     parts = [k for k in U.PARTS if getattr(states["hand"], k) is not None]
     hand, jvp = states["hand"], states["jvp"]
@@ -1399,10 +1486,12 @@ def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
     check(counts["hand"] == counts["jvp"] and gap <= SPLIT_ROUTES_BAR,
           f"{what}: the hand and jvp routes: {counts['hand']} vs "
           f"{counts['jvp']}, max |dy| {gap:.3e} m")
-    check(per["graph"]["syncs"] == [1] * STORM_WINDOWS
-          and g.stats["launches"] == STORM_WINDOWS,
-          f"{what}: graph syncs {per['graph']['syncs']}, launches "
-          f"{g.stats['launches']}")
+    launches = {"graph": g.stats["launches"],
+                "torch": g_torch.stats["launches"]}
+    check(per["graph"]["syncs"] == per["torch"]["syncs"] == [1] * STORM_WINDOWS
+          and launches == dict.fromkeys(launches, STORM_WINDOWS),
+          f"{what}: graph syncs {per['graph']['syncs']} and "
+          f"{per['torch']['syncs']}, launches {launches}")
 
     # each sub-linearization at the graph's end state, its frozen inputs
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -1436,7 +1525,7 @@ def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
         per[form]["device_busy_ms"] = sum(us for _, us, _ in rows) / 1e3
     for form, r in per.items():
         r["syncs_per_window"] = sum(r["syncs"]) / STORM_WINDOWS
-        r["graph_launches"] = gstats["launches"] if form == "graph" else 0
+        r["graph_launches"] = launches.get(form, 0)
         log(f"  {what} -g {form}: wall per window "
             + ", ".join(f"{x:.4f}" for x in r["wall_s"])
             + f" s (total {sum(r['wall_s']):.3f} s); host syncs a window "
@@ -1452,6 +1541,7 @@ def split_forms(p, torch, spun: dict, what: str, ne: int, nr: int,
         f"{gap:.3e} m; J.v vs torch.func.jvp " + ", ".join(
             f"{k} {e:.2e}" for k, e in lin_err.items()))
     g.close()
+    g_torch.close()
     return {"forms": per, "graph": gstats, "solvers": counts,
             "hand_vs_jvp_m": gap, "lin_err": lin_err}
 
@@ -2218,17 +2308,19 @@ def main_projects(sim_minutes: float):
     return inp, inp32
 
 
-def phase_main_paths(inp, inp32, torch, edge, mega, bdf, sim_minutes,
-                     summary) -> dict:
+def phase_main_paths(inp, inp32, torch, edge, mega, solver, bdf,
+                     sim_minutes, summary) -> dict:
     """Phase 7: both main paths (phase_main) and their launch gates; the
-    summary gains each run, and the kernels' launches are returned."""
-    counts = {}
+    summary gains each run, and the kernels' launches are returned (the
+    solver kernels': both paths' sum, each path's under
+    "solver_by_path")."""
+    counts = {"solver_by_path": {}}
     for name, p, want, absent, start, span in (
             ("edge_131k", inp, edge, mega, *EDGE_MAIN_SPAN),
             ("mega_32k", inp32, mega, edge, 0.0, sim_minutes)):
         with tempfile.TemporaryDirectory(prefix="shud_smoke_") as outdir:
-            run = phase_main(copy.deepcopy(p), torch, (edge, mega), bdf,
-                             min(span, sim_minutes), outdir, start)
+            run = phase_main(copy.deepcopy(p), torch, (edge, mega, solver),
+                             bdf, min(span, sim_minutes), outdir, start)
         for k in want.launch_counts:
             check(run["launches"][k] > 0, f"{k} not launched on {name}")
         for k in absent.launch_counts:
@@ -2257,7 +2349,22 @@ def phase_main_paths(inp, inp32, torch, edge, mega, bdf, sim_minutes,
             check(run["launches"]["mega_diag"] == windows,
                   f"{name}: {run['launches']['mega_diag']} mega_diag "
                   f"launches in {windows} windows")
+        # the solver kernels: per step one bdf_begin and one step end, per
+        # Newton iteration one Newton tail, 1 + m + m(m+1)/2 axpy and
+        # m + 1 column launches; the graph's warm-up runs one step of two
+        # iterations
+        n = run["launches"]
+        steps = run["nsteps"] + run["graph"]["warmup_newton_iters"] // 2
+        want_solver = {"bdf_begin": steps, "bdf_finish": it + steps,
+                       "krylov_axpy": (1 + m + m * (m + 1) // 2) * it,
+                       "krylov_column": (m + 1) * it}
+        check({k: n[k] for k in want_solver} == want_solver,
+              f"{name}: solver kernels {n} for {steps} steps and {it} "
+              f"Newton iterations (want {want_solver})")
         counts.update({k: run["launches"][k] for k in want.launch_counts})
+        counts["solver_by_path"][name] = want_solver
+        for k, v in want_solver.items():
+            counts[k] = counts.get(k, 0) + v
         summary[f"main_{name}"] = run
     return counts
 
@@ -2372,14 +2479,24 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
     windows plus the warm-up's; each form's wall (set-up included) and
     set-up seconds; then one interval of the interval and window forms
     under torch.profiler (phase 12's twin): the interval graph launches no
-    kernel from the host.  *runs*: (name, project, start minute, interval
-    lengths)."""
-    forms = {"interval": True, "window": "window", "eager": False}
+    kernel from the host.  The interval graph on the solver's torch pieces
+    (``solver_kernel=False``, "interval_torch") is held to the same
+    records; the solver kernels' device counts: none there, elsewhere per
+    step one bdf_begin and one step end, per Newton iteration one Newton
+    tail, 1 + m + m(m+1)/2 axpy and m + 1 column launches (a graph's
+    warm-up: one step of two iterations).  *runs*: (name, project, start
+    minute, interval lengths)."""
+    from shud_tpu_torch.solver import kernels as solver
+
+    forms = {"interval": {}, "window": {"captured": "window"},
+             "eager": {"captured": False},
+             "interval_torch": {"solver_kernel": False}}
     out = {}
     for name, p, start, lengths in runs:
         res, recs = {}, {}
-        for form, captured in forms.items():
-            sim = storm_sim(p, torch, start=start, captured=captured)
+        for form, kw in forms.items():
+            sim = storm_sim(p, torch, start=start, **kw)
+            solver.reset_launch_counts()
             for k in kernels:
                 k.reset_launch_counts()
             s0, w0 = bdf.host_syncs, graph.warmup_newton_iters
@@ -2399,6 +2516,7 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = device_counts(kernels)
+            solver_counts = solver.device_launch_counts()
             windows = sum(int(round(m / p.control.solver_step))
                           for m in lengths)
             warm_it = graph.warmup_newton_iters - w0
@@ -2413,12 +2531,31 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
                   f"{name} {form}: {counts} for {iters} Newton iterations "
                   f"(+{warm_it} warm-up) in {windows} windows "
                   f"(+{warm_w} warm-up)")
+            steps, it = sim.bdf.nsteps + warm_it // 2, iters + warm_it
+            want_solver = (
+                dict.fromkeys(solver_counts, 0) if "solver_kernel" in kw
+                else {"bdf_begin": steps, "krylov_axpy":
+                      (1 + m + m * (m + 1) // 2) * it,
+                      "krylov_column": (m + 1) * it,
+                      "bdf_finish": it + steps})
+            check(solver_counts == want_solver,
+                  f"{name} {form}: solver kernels {solver_counts}, want "
+                  f"{want_solver}")
             g = graph_of(sim)
+            if form in ("interval", "interval_torch"):
+                nodes = g.program.node_counts()
+                log(f"  {name} {form}: device nodes of each captured piece "
+                    + ", ".join(f"{k} {sum(v.values())} ({v['kernel']} "
+                                f"kernels)" for k, v in nodes.items()))
+            else:
+                nodes = None
             res[form] = {
+                "nodes": nodes,
                 "wall_s": wall, "syncs": bdf.host_syncs - s0,
                 "newton_iters": iters, "nsteps": sim.bdf.nsteps,
                 "nfe": sim.bdf.nfe, "windows": windows,
-                "intervals": len(lengths), "launches": counts,
+                "intervals": len(lengths),
+                "launches": {**counts, **solver_counts},
                 "graph": graph_stats(sim) if g is not None else None}
             recs[form] = rec
             del sim
@@ -2428,7 +2565,7 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
               == len(lengths) and gi["windows"] == res["interval"]["windows"],
               f"{name}: the interval graph's launches and syncs {gi} for "
               f"{len(lengths)} intervals")
-        for form in ("window", "eager"):
+        for form in ("window", "eager", "interval_torch"):
             for k, (a, b) in enumerate(zip(recs["interval"], recs[form])):
                 check(same_interval(a, b),
                       f"{name}: the interval graph and the {form} form part "
@@ -2436,7 +2573,7 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
         if name != "frost_32k":
             for form in ("interval", "window"):
                 prof = phase_profile(p, torch, minutes=lengths[0],
-                                     start=start, captured=forms[form])
+                                     start=start, **forms[form])
                 res[form]["profile"] = prof
                 res[form]["host_launch_calls_per_window"] = sum(
                     prof["host_launch_calls"].values()) / prof["windows"]
@@ -2464,6 +2601,100 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
     return out
 
 
+def phase_solver_kernels(sizes: dict, torch, solver, results,
+                         device_times) -> dict:
+    """Phase 21: the solver's four kernels (csrc/bdf.cu) against their
+    plain versions at the main paths' state sizes (*sizes*: name -> n) in
+    float32 and float64, on every case of
+    ``torch_variants.solver_kernel_cases``: each output bitwise equal, each
+    call one device launch of its kernel and of no other (a whole Newton
+    update: 10 axpy and 4 column launches).  Then each kernel's timed case
+    (SOLVER_TIMED) per call (CUDA events), device time and launches per
+    call (profiler), with a cold L2, beside its plain version and its
+    bound (the vectors it reads and writes once over 3.35 TB/s); the
+    axpy's library call ``torch.addcmul``; and the reductions kept as
+    library calls, ``torch.dot`` and ``torch.sum``, per call and in the
+    device nodes one captured call adds (``torch.dot(..., out=)`` beside
+    it).  Times in float32 at every size, in float64 at the first; the
+    kernels line takes the first size's float32 times."""
+    from torch_variants import solver_kernel_cases
+
+    out = {"cases": {}, "timed": {}, "reductions": {}}
+    first = next(iter(sizes))
+    for size, n in sizes.items():
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{size}-{str(dtype)[6:]}"
+            gated = 0
+            err = dict.fromkeys(solver.launch_counts, 0.0)
+            for case in solver_kernel_cases(n, dtype, DEVICE, seed=n):
+                torch.cuda.synchronize()
+                before = solver.device_launch_counts()
+                got = case.run(True)
+                torch.cuda.synchronize()
+                after = solver.device_launch_counts()
+                want = case.run(False)
+                delta = {k: after[k] - before[k] for k in after}
+                expect = ({"krylov_axpy": 10, "krylov_column": 4}
+                          if case.name == "newton_update"
+                          else {case.name: 1})
+                check(delta == {k: expect.get(k, 0) for k in delta},
+                      f"solver kernels {tag} {case.label}: device launches "
+                      f"{delta}")
+                for k in want:
+                    check(got[k].dtype == want[k].dtype
+                          and torch.equal(got[k], want[k]),
+                          f"{case.name} {tag} {case.label}: {k} differs "
+                          f"from the plain version by "
+                          f"{abs_err(want[k], got[k]):.3e}")
+                    if case.name in err:
+                        err[case.name] = max(err[case.name],
+                                             abs_err(want[k], got[k]))
+                gated += 1
+            out["cases"][tag] = gated
+            log(f"  {tag} (n {n}): {gated} cases, every output bitwise its "
+                f"plain version, one device launch a call")
+            if dtype == torch.float64 and size != first:
+                continue
+            cases = {c.label: c for c in solver_kernel_cases(n, dtype,
+                                                              DEVICE, seed=n)}
+            rate = F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S
+            size_b = torch.finfo(dtype).bits // 8
+            for name, label in SOLVER_TIMED.items():
+                case = cases[label]
+                kern = case.prepare(True)[0]
+                plain = case.prepare(False)[0]
+                rec, dev = {}, {}
+                timed(name, kern, plain, case.vectors * n * size_b,
+                      case.ops * n, err[name], rec, dev, rate)
+                entry = {**rec[name], **dev[name], "case": label}
+                library = case.prepare(True)[2]
+                if library is not None:  # the same function in one call
+                    entry["library_ms"] = time_ms(library)
+                out["timed"][f"{name}@{tag}"] = entry
+                if size == first and dtype == torch.float32:
+                    results[name] = {k: entry[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}
+                    device_times[name] = dev[name]
+            a, b = (torch.randn(n, dtype=dtype, device=DEVICE)
+                    for _ in range(2))
+            slot = torch.zeros(4, dtype=dtype, device=DEVICE)
+            red = {}
+            for label, fn in (
+                    ("dot", lambda: torch.dot(a, b)),
+                    ("dot_out", lambda: torch.dot(a, b, out=slot[1])),
+                    ("sum", lambda: torch.sum(a))):
+                red[label] = {"ms": time_ms(fn),
+                              "event_device_ms": device_ms(fn),
+                              "nodes": graph_nodes(torch, fn)}
+            out["reductions"][tag] = red
+            log(f"  {tag} kept reductions: " + "; ".join(
+                f"{k} {v['ms']:.4f} ms per call, device "
+                f"{v['event_device_ms']:.5f} ms, nodes {v['nodes']}"
+                for k, v in red.items()))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sim-minutes", type=float, default=1440.0,
@@ -2471,12 +2702,16 @@ def main() -> int:
     args = ap.parse_args()
     t_script = time.perf_counter()
 
+    def phase(msg: str) -> None:
+        log(f"{msg}  [{time.perf_counter() - t_script:.1f} s]")
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    if not all((ROOT / src).is_file() for src in (EDGE_SOURCE, MEGA_SOURCE)):
+    if not all((ROOT / src).is_file()
+               for src in (EDGE_SOURCE, MEGA_SOURCE, SOLVER_SOURCE)):
         print("chip_smoke: shud_tpu_torch is not next to this script",
               file=sys.stderr)
         return 2
@@ -2487,6 +2722,7 @@ def main() -> int:
     from shud_tpu_torch.core import cuda_build, edge, mega
     from shud_tpu_torch.core.mesh import build_mesh
     from shud_tpu_torch.solver import bdf, graph
+    from shud_tpu_torch.solver import kernels as solver
     from shud_tpu_torch.utils.synthetic import make_synthetic_project
 
     # phase 1: the card
@@ -2501,7 +2737,7 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     summary = {"card": smi, "sim_minutes": args.sim_minutes}
 
-    # phase 2: build the kernels (both sources, one nvcc each, in parallel)
+    # phase 2: build the kernels (every source, one nvcc each, in parallel)
     lib = cuda_build.load_library()
     info = cuda_build.build_info
     log(f"kernels built in {info['seconds']:.2f} s: {info['path']}")
@@ -2531,22 +2767,22 @@ def main() -> int:
     check(mega.build_mega_tables(md) is None, "131k mesh on the mega path")
 
     results, device_times = {}, {}
-    log("phase 4: edge kernels vs plain versions (131k)")
+    phase("phase 4: edge kernels vs plain versions (131k)")
     phase_kernels(md, torch, edge, results, device_times)
-    log("phase 5: mega kernels vs plain versions (32k, lake, branched)")
+    phase("phase 5: mega kernels vs plain versions (32k, lake, branched)")
     summary["mega_design"] = phase_mega_kernels(
         {"32k": md32, "lake8k": lake_md, "branched": branched_md}, torch,
         mega, results, device_times)
     summary["kernel_device_ms"] = device_times
-    log("phase 6: full RHS and J.v")
+    phase("phase 6: full RHS and J.v")
     phase_rhs(md, lake_md, torch, summary)
     summary["mega_rhs_32k"] = phase_mega_rhs(md32, torch, mega)
 
-    log("phase 7: the main paths (run_project_fast, f32, cuda)")
-    counts = phase_main_paths(inp, inp32, torch, edge, mega, bdf,
+    phase("phase 7: the main paths (run_project_fast, f32, cuda)")
+    counts = phase_main_paths(inp, inp32, torch, edge, mega, solver, bdf,
                               args.sim_minutes, summary)
 
-    log("phase 8: kernel paths vs reference paths, determinism")
+    phase("phase 8: kernel paths vs reference paths, determinism")
     summary["paths_edge_131k"] = phase_paths(
         inp, torch, {"kernel": {}, "plain": {"edge_kernel": False}},
         {"kernel-plain": None}, "131k edge kernels vs plain")
@@ -2557,7 +2793,7 @@ def main() -> int:
                                    "float_dtype": torch.float64}},
         {"kernel-plain": None, "kernel-eager": "eager-eager64"},
         "32k mega")
-    log("phase 9: the cryosphere, a frosty window and 6 storm windows")
+    phase("phase 9: the cryosphere, a frosty window and 6 storm windows")
     summary["cryo_mega_32k"] = phase_paths(
         frost_project(inp32), torch,
         {"kernel": {}, "plain": {"mega_kernel": False}},
@@ -2570,17 +2806,20 @@ def main() -> int:
         {"kernel-plain": None}, "131k edge kernels, frozen ground",
         start=710.0, n_windows=STORM_WINDOWS + 1, repeat=False,
         after=frozen_fractions)
-    log("phase 10: the per-window driver vs the fused driver (131k)")
+    phase("phase 10: the per-window driver vs the fused driver (131k)")
     summary["per_window_131k"] = phase_paths(
         inp, torch, {"per_window": {"per_window": True}, "fused": {},
                      "per_window_eager": {"per_window": True,
-                                          "captured": False}},
+                                          "captured": False},
+                     "per_window_torch": {"per_window": True,
+                                          "solver_kernel": False}},
         {"per_window-fused": None}, "131k per-window vs fused",
-        bitwise=(("per_window", "per_window_eager"),), repeat=False,
+        bitwise=(("per_window", "per_window_eager"),
+                 ("per_window", "per_window_torch")), repeat=False,
         after=per_window_graph)
-    log("phase 11: the command line")
+    phase("phase 11: the command line")
     summary["cli"] = phase_cli(torch)
-    log("phase 12: profile of one storm window on each path, captured and "
+    phase("phase 12: profile of one storm window on each path, captured and "
         "eager")
     summary["profile_edge_131k"] = phase_profile(inp, torch)
     summary["profile_mega_32k"] = phase_profile(inp32, torch)
@@ -2588,31 +2827,44 @@ def main() -> int:
                                                        captured=False)
     summary["profile_mega_32k_eager"] = phase_profile(inp32, torch,
                                                       captured=False)
-    log("phase 13: the operator-split driver (-g, f64) vs the implicit one")
+    # the same captured windows on the solver's torch pieces
+    summary["profile_edge_131k_torch"] = phase_profile(inp, torch,
+                                                       solver_kernel=False)
+    summary["profile_mega_32k_torch"] = phase_profile(inp32, torch,
+                                                      solver_kernel=False)
+    per_nfe = {k: summary[f"profile_{k}"]["launches_per_nfe"]
+               for k in ("edge_131k", "edge_131k_torch", "mega_32k",
+                         "mega_32k_torch")}
+    log("  device launches a NFE, captured storm window: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in per_nfe.items()))
+    check(per_nfe["mega_32k"] <= MEGA_LAUNCHES_PER_NFE,
+          f"the captured mega-32k storm window runs {per_nfe['mega_32k']:.1f}"
+          f" device launches a NFE (at most {MEGA_LAUNCHES_PER_NFE})")
+    phase("phase 13: the operator-split driver (-g, f64) vs the implicit one")
     spun32 = spin_up(inp32, torch)
     summary["split_32k"] = phase_split(inp32, torch, (edge, mega), "32k",
                                        spun32)
     lake_inp = storm_project(*LAKE_MESH, 1.0, with_lake=True, localize=False)
     summary["split_lake8k"] = phase_split(lake_inp, torch, (edge, mega),
                                           "lake 8k", spin_up(lake_inp, torch))
-    log("phase 14: adaptive paths vs the fixed-step f64 truth (32k)")
+    phase("phase 14: adaptive paths vs the fixed-step f64 truth (32k)")
     summary["truth_32k"] = phase_truth(inp32, torch, edge, mega, bdf, spun32)
-    log("phase 15: NetCDF forcing and output (32k)")
+    phase("phase 15: NetCDF forcing and output (32k)")
     summary["netcdf_32k"] = phase_netcdf(inp32, torch, mega, (edge, mega))
-    log(f"phase 16: the refined mesh ({REFINE_LEVELS} levels of the 131k)")
+    phase(f"phase 16: the refined mesh ({REFINE_LEVELS} levels of the 131k)")
     summary["refined"] = phase_refined(inp, torch, edge, bdf)
-    log(f"phase 17: the sharded driver ({SHARDS} ranks, 131k, gloo)")
+    phase(f"phase 17: the sharded driver ({SHARDS} ranks, 131k, gloo)")
     summary["sharded_131k"] = phase_sharded(inp, torch, edge, smi)
-    log(f"phase 18: autocalibration on the mega path ({MEGA_MESH[0]}x"
+    phase(f"phase 18: autocalibration on the mega path ({MEGA_MESH[0]}x"
         f"{MEGA_MESH[1]} mesh, f32)")
     summary["calib_32k"] = phase_calib(torch, (edge, mega), bdf, smi)
-    log("phase 19: the captured window vs the eager loop (phase 7's spans)")
+    phase("phase 19: the captured window vs the eager loop (phase 7's spans)")
     summary["captured"] = phase_captured(
         (("edge_131k", inp, EDGE_MAIN_SPAN[0],
           min(EDGE_MAIN_SPAN[1], args.sim_minutes)),
          ("mega_32k", inp32, 0.0, args.sim_minutes)), torch, bdf)
 
-    log("phase 20: the interval graph vs the per-window replay and the "
+    phase("phase 20: the interval graph vs the per-window replay and the "
         "eager loop")
     mega_iv = min(120.0, args.sim_minutes)
     edge_span = min(EDGE_MAIN_SPAN[1], args.sim_minutes)
@@ -2625,20 +2877,31 @@ def main() -> int:
          ("frost_32k", frost_project(inp32), 710.0, (60.0, 10.0))),
         torch, (edge, mega), bdf, graph)
 
+    phase("phase 21: the solver kernels vs their plain versions")
+    ne32, ne = md32.num_ele, md.num_ele
+    summary["solver_kernels"] = phase_solver_kernels(
+        {"32k": 3 * ne32 + md32.num_riv + md32.num_lake,
+         "131k": 3 * ne + md.num_riv + md.num_lake},
+        torch, solver, results, device_times)
+
     summary["script_s"] = time.perf_counter() - t_script
     log(f"script: {summary['script_s']:.1f} s")
     log(json.dumps({"summary": summary}))
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep[name],
                     launches=counts[name], **results[name])
                for src, rep in ((EDGE_SOURCE, REPLACES),
-                                (MEGA_SOURCE, MEGA_REPLACES))
+                                (MEGA_SOURCE, MEGA_REPLACES),
+                                (SOLVER_SOURCE, SOLVER_REPLACES))
                for name in rep]
     for k in kernels:  # the later main paths' launches
         if k["name"] in REPLACES:  # phase 17's, per rank
             k["sharded_launches"] = [
                 n[k["name"]] for n in summary["sharded_131k"]["launches"]]
-        else:  # phase 18's main path: the search's launches
+        elif k["name"] in MEGA_REPLACES:  # phase 18's: the search's
             k["calib_launches"] = summary["calib_32k"]["launches"][k["name"]]
+        else:  # phase 7's two runs apart
+            k["launches_by_path"] = {
+                p: n[k["name"]] for p, n in counts["solver_by_path"].items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

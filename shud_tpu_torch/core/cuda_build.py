@@ -111,13 +111,23 @@ def load_library() -> ctypes.CDLL:
                   "add_while": [p, p, p, pp, pp, ctypes.POINTER(u64)],
                   "add_condition": [p, p, u64, p, pp],
                   "instantiate": [p, pp], "launch": [p, p],
-                  "exec_destroy": [p]}
+                  "exec_destroy": [p],
+                  "node_types": [p, ctypes.POINTER(u64)]}
     for name, args in graph_args.items():
         getattr(lib, f"shud_graph_{name}").argtypes = args
+    ll, d = ctypes.c_longlong, ctypes.c_double
+    dp, lp = ctypes.POINTER(d), ctypes.POINTER(ll)
+    solver_args = {"bdf_begin": [i, pp, dp, lp, p],
+                   "krylov_axpy": [i, i, pp, ll, p],
+                   "krylov_column": [i, i, i, i, pp, pp, d, ll, p],
+                   "bdf_finish": [i, i, pp, dp, lp, p]}
+    for name, args in solver_args.items():
+        getattr(lib, f"shud_{name}").argtypes = args
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,
                lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag,
                lib.shud_mega_occupancy, lib.shud_mega_barrier_probe,
-               *(getattr(lib, f"shud_graph_{n}") for n in graph_args)):
+               *(getattr(lib, f"shud_graph_{n}") for n in graph_args),
+               *(getattr(lib, f"shud_{n}") for n in solver_args)):
         fn.restype = ctypes.c_int
     lib.shud_mega_scratch_floats.argtypes = [i, i, i, i]
     lib.shud_mega_scratch_floats.restype = ctypes.c_longlong

@@ -153,4 +153,27 @@ int shud_graph_exec_destroy(void* exec) {
       cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec)));
 }
 
+// the nodes of *graph* by type (a captured piece's: what one replay of it
+// runs on the device): out[0] kernels, out[1] copies, out[2] memsets,
+// out[3] any other node
+int shud_graph_node_types(void* graph, unsigned long long* out) {
+  auto g = static_cast<cudaGraph_t>(graph);
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  for (int k = 0; k < 4; ++k) out[k] = 0;
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  err = cudaGraphGetNodes(g, nodes, &n);
+  for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType type;
+    err = cudaGraphNodeGetType(nodes[i], &type);
+    const int k = type == cudaGraphNodeTypeKernel ? 0
+                  : type == cudaGraphNodeTypeMemcpy ? 1
+                  : type == cudaGraphNodeTypeMemset ? 2 : 3;
+    out[k] += 1;
+  }
+  delete[] nodes;
+  return static_cast<int>(err);
+}
+
 }  // extern "C"

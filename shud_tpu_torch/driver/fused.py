@@ -343,6 +343,7 @@ def run_interval(
     cryo: "CryoState | None" = None,  # on: the frozen-ground accumulators
     cryo_bounds=(-1.0, -5.0, -3.0, -10.0),  # surf max/min, sub max/min
     window: "WindowGraph | None" = None,  # on: each solve a graph replay
+    solver_kernel: bool = True,  # False: the solver's torch pieces
 ):
     """Advance *n_windows* solver windows in a host loop; returns (bdf
     state, buckets, cryosphere state, mean_e, mean_r, mean_l, stages
@@ -376,7 +377,8 @@ def run_interval(
         if window is not None:
             st = window.solve(st, tout, params)
         else:
-            st = solve_to(f, st, tout, params, cfg, qfn, linearize=lin)
+            st = solve_to(f, st, tout, params, cfg, qfn, linearize=lin,
+                          solver_kernel=solver_kernel)
         diag = window_diag(dm, mega, mf, fs, tout, st.y, close_boundary,
                            per_edge_out, mega_kernel)
         ve, vr, vl = window_values(dm, st.y, diag, cf, bk, fs.net_prcp,
@@ -444,7 +446,8 @@ class IntervalPieces:
             params = (self.mf, self.fs if quad else None)
         rhs_fn, lin_fn = functions(f, params, lin)
         self.solver = SolverPieces(rhs_fn, lin_fn, sim.cfg, qfn, params,
-                                   clone(to_carry(sim.bdf)))
+                                   clone(to_carry(sim.bdf)),
+                                   kernel=sim.solver_kernel)
         # the interval sums and their means, one flat buffer each
         keys = (ACCUM_KEYS + PER_EDGE_KEYS if self.per_edge_out
                 else ACCUM_KEYS)
@@ -569,10 +572,10 @@ class IntervalGraph:
     @staticmethod
     def key_of(sim: "FusedSimulation") -> tuple:
         """What changes the pieces: mega or edge path, per-edge output,
-        cryosphere, BC tables, quadrature."""
+        cryosphere, BC tables, quadrature, the solver's route."""
         return (sim.mega is not None, per_edge_output(sim.inp.control),
                 sim.cryo is not None, sim.bc is not None,
-                sim.bdf.quad is not None)
+                sim.bdf.quad is not None, sim.solver_kernel)
 
     def run(self, sim: "FusedSimulation", n_windows: int, rows, t0: float):
         """Advance *sim*'s state over *n_windows* windows from *t0* with
@@ -666,6 +669,8 @@ class FusedSimulation:
     last_mean_l: dict = dataclasses.field(default_factory=dict)
     mega: "mega_mod.MegaTables | None" = None  # on: the megakernel's tables
     mega_kernel: bool = True  # False: the mega path on its plain versions
+    # False: the solver's torch pieces instead of its kernels
+    solver_kernel: bool = True
     cryo: "CryoState | None" = None  # on with cryosphere=1
     # on the card: True, each interval one graph launch (IntervalGraph);
     # "window", each window's solve one (WindowGraph); False, the eager loop
@@ -693,6 +698,7 @@ class FusedSimulation:
                fr: "ForcingRuntime | None" = None,
                device: "str | torch.device" = "cuda",
                captured: bool = True,
+               solver_kernel: bool = True,
                **control_overrides):
         """Build a simulation on *device* (the card unless the caller
         asks for the CPU) in *float_dtype*.
@@ -721,6 +727,12 @@ class FusedSimulation:
         graphs are held against).  The CPU runs the eager loop, unless
         the caller gives the simulation an ``IntervalGraph`` or a
         ``WindowGraph`` with ``capture=False`` (the tests).
+
+        ``solver_kernel``: the solver's step and Newton–Krylov body through
+        the kernels of ``solver/kernels.py`` (in every form: interval
+        graph, window graph, eager loop; their plain versions on the CPU);
+        False runs the solver's torch pieces, the reference they are held
+        against (bitwise).
 
         The mega path keeps the eager ``TorchMesh`` beside its tables: the
         window's forcing (``cell_forcing``, ``et_bucket_step``) reads its
@@ -802,7 +814,7 @@ class FusedSimulation:
             bdf=bdf_init(cs.start_time, y0, cfg, quad0=quad0),
             buckets=BucketState(ic_stg=t(ic0), snow=t(snow0)),
             t=cs.start_time, mega=mega_tables, mega_kernel=mega_kernel,
-            cryo=cryo, captured=captured,
+            cryo=cryo, captured=captured, solver_kernel=solver_kernel,
             bc=bc_device_tables(fr, md, fd, device),
         )
 
@@ -848,7 +860,8 @@ class FusedSimulation:
                 f, lin, qfn = window_functions(
                     self.dm, self.mega, bool(cs.close_boundary),
                     self.mega_kernel, self.bdf.quad is not None)
-                self.window = WindowGraph(f, lin, self.cfg, quad_fn=qfn)
+                self.window = WindowGraph(f, lin, self.cfg, quad_fn=qfn,
+                                          solver_kernel=self.solver_kernel)
             gc = self.inp.calib
             out = run_interval(
                 self.dm, self.tables, self.bdf, self.buckets, self.fr.cal,
@@ -862,7 +875,7 @@ class FusedSimulation:
                 mega_kernel=self.mega_kernel, cryo=self.cryo,
                 cryo_bounds=(gc.fzn_surfmax, gc.fzn_surfmin,
                              gc.fzn_submax, gc.fzn_submin),
-                window=self.window)
+                window=self.window, solver_kernel=self.solver_kernel)
         st, bk, cryo, mean_e, mean_r, mean_l, stages, qdowns = out
         self.bdf = st
         self.buckets = bk

@@ -229,16 +229,17 @@ def run_project_fast(project: str, base: str = ".", end_day=None,
                      float_dtype: torch.dtype = torch.float64, verbose=True,
                      outpath=None, resume=None, inp=None,
                      device: "str | torch.device" = "cuda",
-                     mega: "bool | str" = "auto", **overrides):
+                     mega: "bool | str" = "auto",
+                     solver_kernel: bool = True, **overrides):
     """Run a project through the fused driver, writing the full output set.
     Returns the ``FusedSimulation`` at the end of the run.  Runs on the
-    card unless *device* says otherwise; ``mega`` as in
-    ``FusedSimulation.create``."""
+    card unless *device* says otherwise; ``mega`` and ``solver_kernel`` as
+    in ``FusedSimulation.create``."""
     if end_day is not None:
         overrides.setdefault("day_end", end_day)
     sim = FusedSimulation.create(project, base=base, float_dtype=float_dtype,
                                  inp=inp, device=device, mega=mega,
-                                 **overrides)
+                                 solver_kernel=solver_kernel, **overrides)
     if outpath:
         sim.inp.paths.outpath = outpath
     if resume:

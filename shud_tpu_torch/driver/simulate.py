@@ -97,6 +97,7 @@ class Simulation:
     t: float
     captured: bool = True  # on the card: each window's solve a graph launch
     window: "WindowGraph | None" = None  # made at the first such window
+    solver_kernel: bool = True  # False: the solver's torch pieces
 
     @classmethod
     def create(cls, project: str, base: str = ".",
@@ -104,7 +105,8 @@ class Simulation:
                device: "str | torch.device" = "cuda",
                edge_kernel: "bool | str" = "auto",
                inp: "ProjectInput | None" = None, dummy: bool = False,
-               captured: bool = True, **control_overrides):
+               captured: bool = True, solver_kernel: bool = True,
+               **control_overrides):
         """Load *project* (or take *inp*, as ``FusedSimulation.create``
         does) and build the simulation on *device* (the card unless the
         caller asks for the CPU) in *float_dtype*; ``edge_kernel`` as in
@@ -116,7 +118,7 @@ class Simulation:
         False runs the eager ``solve_to`` there, the reference it is held
         against.  The CPU runs ``solve_to`` unless the caller gives the
         simulation a ``WindowGraph`` with ``capture=False`` (the
-        tests)."""
+        tests).  ``solver_kernel`` as in ``FusedSimulation.create``."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -156,7 +158,8 @@ class Simulation:
         buckets = BucketState(ic_stg=t(ic0), snow=t(snow0))
         bdf = bdf_init(cs.start_time, t(y0), cfg)
         return cls(inp=inp, md=md, dm=dm, fr=fr, cfg=cfg, bdf=bdf,
-                   buckets=buckets, t=cs.start_time, captured=captured)
+                   buckets=buckets, t=cs.start_time, captured=captured,
+                   solver_kernel=solver_kernel)
 
     def _dev(self, a):
         y = self.bdf.y
@@ -193,13 +196,15 @@ class Simulation:
         (forcing slice, cell forcing) of the window."""
         fs, cf, buckets = self._window_forcing(tout)
         if self.window is None and self.captured and self.bdf.y.is_cuda:
-            self.window = WindowGraph(*self.window_functions(), self.cfg)
+            self.window = WindowGraph(*self.window_functions(), self.cfg,
+                                      solver_kernel=self.solver_kernel)
         if self.window is not None:
             self.bdf = self.window.solve(self.bdf, tout, fs)
         else:
             f, lin = self.window_functions()
             self.bdf = solve_to(f, self.bdf, tout, fs, self.cfg,
-                                linearize=lin)
+                                linearize=lin,
+                                solver_kernel=self.solver_kernel)
         self.buckets = buckets
         self.t = tout
         return fs, cf

@@ -554,14 +554,16 @@ def _lake_inflow(dm, fs, riv):
 
 def advance_window_uncoupled(dm, fs: ForcingSlice, states: UncoupledStates,
                              t: float, tout: float, cfg: SolverConfig,
-                             close_boundary=True,
-                             linearize=True) -> UncoupledStates:
+                             close_boundary=True, linearize=True,
+                             solver_kernel: bool = True) -> UncoupledStates:
     """One Gauss-Seidel sweep: surf -> unsat -> gw -> river -> lake, each
     advanced over [t, tout] by its own adaptive implicit solver instance.
     *linearize*: each Newton iteration linearizes the sub-RHS once through
     its hand linearization (``linearize_surf`` ...), as JAX calls
     ``jax.linearize``; False takes ``torch.func.jvp`` of the sub-RHS per
-    Krylov vector (``solve_to``'s default, the reference route)."""
+    Krylov vector (``solve_to``'s default, the reference route).
+    *solver_kernel*: each solve's step body through the solver kernels
+    (``solve_to``'s)."""
     has_lake = dm.num_lake > 0 and states.lake is not None
     f1, f2, f3, f4, f5 = _split_fns(bool(close_boundary))
     l1, l2, l3, l4, l5 = (_split_lins(bool(close_boundary)) if linearize
@@ -574,12 +576,13 @@ def advance_window_uncoupled(dm, fs: ForcingSlice, states: UncoupledStates,
 
     # 1) surface
     st1 = solve_to(f1, states.surf, tout,
-                   (dm, fs, (us0, gw0, riv0, lake0)), cfg, linearize=l1)
+                   (dm, fs, (us0, gw0, riv0, lake0)), cfg, linearize=l1,
+                   solver_kernel=solver_kernel)
     sf1 = maximum(st1.y, 0.0)
 
     # 2) unsaturated
     st2 = solve_to(f2, states.unsat, tout, (dm, fs, (sf1, gw0)), cfg,
-                   linearize=l2)
+                   linearize=l2, solver_kernel=solver_kernel)
     us1 = maximum(st2.y, 0.0)
 
     # 3) groundwater: recharge/exfiltration/ET frozen at the staged states
@@ -587,20 +590,21 @@ def advance_window_uncoupled(dm, fs: ForcingSlice, states: UncoupledStates,
         f3, states.gw, tout,
         (dm, fs, (sf1, us1, riv0,
                   *_gw_frozen(dm, fs, sf1, us1, gw0, has_lake), lake0)),
-        cfg, linearize=l3)
+        cfg, linearize=l3, solver_kernel=solver_kernel)
     gw1 = maximum(st3.y, 0.0)
 
     # 4) river: exchange fluxes frozen at the staged states
     st4 = solve_to(f4, states.riv, tout,
                    (dm, fs, _riv_frozen(dm, fs, sf1, us1, gw1, riv0,
-                                        has_lake)), cfg, linearize=l4)
+                                        has_lake)), cfg, linearize=l4,
+                   solver_kernel=solver_kernel)
 
     # 5) lake: element states and river inflow frozen at staged values
     st5 = states.lake
     if has_lake:
         st5 = solve_to(f5, states.lake, tout,
                        (dm, fs, (sf1, us1, gw1, _lake_inflow(dm, fs, st4.y))),
-                       cfg, linearize=l5)
+                       cfg, linearize=l5, solver_kernel=solver_kernel)
 
     return UncoupledStates(surf=st1, unsat=st2, gw=st3, riv=st4, lake=st5)
 
@@ -700,7 +704,7 @@ def _dense(st: UncoupledStates) -> torch.Tensor:
 
 def sweep_window(dm, fs, cf, buckets, states: UncoupledStates, t, tout,
                  cfg: SolverConfig, close_boundary=True, per_edge=False,
-                 linearize=True):
+                 linearize=True, solver_kernel: bool = True):
     """One window of the eager loop: ``advance_window_uncoupled``, then the
     window's values at the composed state (``_window_vals``), fetched with
     the state in one transfer.  Returns (states, host values ``{"e", "r",
@@ -708,7 +712,8 @@ def sweep_window(dm, fs, cf, buckets, states: UncoupledStates, t, tout,
     from shud_tpu_torch.driver.run_fast import _to_host
 
     states = advance_window_uncoupled(dm, fs, states, t, tout, cfg,
-                                      close_boundary, linearize)
+                                      close_boundary, linearize,
+                                      solver_kernel)
     y = _dense(states)
     ve, vr, vl = _window_vals(dm, fs, cf, y, buckets.ic_stg, buckets.snow,
                               close_boundary, per_edge)
@@ -728,7 +733,8 @@ class SplitPieces:
     pieces, so that dropping the graph frees it."""
 
     def __init__(self, dm, cfg: SolverConfig, close_boundary: bool,
-                 per_edge: bool, fs, cf, buckets, states: UncoupledStates):
+                 per_edge: bool, fs, cf, buckets, states: UncoupledStates,
+                 solver_kernel: bool = True):
         self.dm, self.cb, self.per_edge = dm, close_boundary, per_edge
         self.has_lake = dm.num_lake > 0 and states.lake is not None
         y = states.surf.y
@@ -760,7 +766,7 @@ class SplitPieces:
             self.solvers[k] = SolverPieces(
                 rhs, ln, cfg, None, params,
                 clone(to_carry(getattr(states, k))), prefix=k + "_",
-                tout=self.tout)
+                tout=self.tout, kernel=solver_kernel)
         # the window's values: their layout from one eager evaluation
         leaves, self.spec = pytree.tree_flatten(self.values())
         self.shapes = [x.shape for x in leaves]
@@ -858,13 +864,16 @@ class SplitGraph:
     (the CPU).  A capture, an instantiation or a launch that fails raises:
     nothing falls back to the eager loop.  ``stats``: graph launches, host
     syncs, each window's steps per sub-solver, the warm-up, capture and
-    instantiation seconds and the warm-up's Newton iterations."""
+    instantiation seconds and the warm-up's Newton iterations.
+    *solver_kernel*: each solver's step body through the solver kernels
+    (``solver/graph.SolverPieces``), a scratch each."""
 
     def __init__(self, dm, cfg: SolverConfig, close_boundary: bool = True,
-                 per_edge: bool = False, capture: "bool | None" = None):
+                 per_edge: bool = False, capture: "bool | None" = None,
+                 solver_kernel: bool = True):
         self.dm, self.cfg = dm, cfg
         self.cb, self.per_edge = bool(close_boundary), bool(per_edge)
-        self.capture = capture
+        self.capture, self.solver_kernel = capture, solver_kernel
         self.pieces = self.program = self._last = None
         self.stats = {"syncs": 0, "steps": [], "warmup_newton_iters": 0}
 
@@ -874,7 +883,8 @@ class SplitGraph:
         (states, host values ``{"e", "r", "l", "y"}``)."""
         if self.pieces is None:
             self.pieces = SplitPieces(self.dm, self.cfg, self.cb,
-                                      self.per_edge, fs, cf, buckets, states)
+                                      self.per_edge, fs, cf, buckets, states,
+                                      self.solver_kernel)
             if self.capture is None:
                 self.capture = states.surf.y.is_cuda
             self.program = Program(self.pieces.pieces(), self.pieces.nodes(),
@@ -929,6 +939,7 @@ def run_project_split(project: str, base: str = ".", end_day=None,
                       verbose=True, outpath=None, calib=None, inp=None,
                       resume=None, device: "str | torch.device" = "cuda",
                       captured: "bool | None" = None,
+                      solver_kernel: bool = True,
                       **overrides) -> UncoupledStates:
     """Operator-split full run (the reference's ``-g`` driver loop,
     shud.cpp:171-357) on *device* (the card unless the caller asks for the
@@ -946,7 +957,9 @@ def run_project_split(project: str, base: str = ".", end_day=None,
     of a ``SplitGraph``; on the CPU, True runs the same program's pieces
     eagerly.  False (the default on the CPU): the eager loop
     (``sweep_window``).  Both linearize each sub-RHS once per Newton
-    iteration.  Returns the final ``UncoupledStates``."""
+    iteration.  *solver_kernel*: every sub-solve's step body through the
+    solver kernels (their plain versions on the CPU); False, the solver's
+    torch pieces.  Returns the final ``UncoupledStates``."""
     import os
     import time
 
@@ -1006,11 +1019,13 @@ def run_project_split(project: str, base: str = ".", end_day=None,
 
     per_edge = bool(cs.dt_Qe_subx > 0 or cs.dt_Qe_surfx > 0)
     if sim.bdf.y.is_cuda if captured is None else captured:
-        sweep = SplitGraph(dm, sim.cfg, cb, per_edge).sweep
+        sweep = SplitGraph(dm, sim.cfg, cb, per_edge,
+                           solver_kernel=solver_kernel).sweep
     else:
         def sweep(fs, cf, buckets, states, t, tout):
             return sweep_window(dm, fs, cf, buckets, states, t, tout,
-                                sim.cfg, cb, per_edge)
+                                sim.cfg, cb, per_edge,
+                                solver_kernel=solver_kernel)
 
     def _restart(path, t, host_y, ic, snow):
         write_restart(

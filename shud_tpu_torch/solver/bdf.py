@@ -28,8 +28,14 @@ host in the loop (the JAX solver's ``lax.while_loop``).  ``solve_to`` runs
 them in a host loop that reads its two conditions (another Newton
 iteration, another step) from the device: the CPU's route, and on the
 card that of the drivers that do not capture (sharded) and of the eager
-forms.  ``host_syncs`` counts its device reads, ``newton_iters`` the
-Newton iterations, read from the carry.  Within a
+forms.  Each piece has two routes: with a ``kernels.Scratch`` (the
+``solver_kernel`` route, the default without a *group*) it runs the four
+kernels of ``solver/kernels.py`` between the library's dot products and
+sums (on the CPU their plain versions), updating the scratch and the carry
+in place; without, the torch expressions below (``solver_kernel=False``,
+and the sharded driver, whose dot products are rank-ordered sums).  The
+two are bitwise equal.  ``host_syncs`` counts its device reads,
+``newton_iters`` the Newton iterations, read from the carry.  Within a
 window the RHS is autonomous (the driver freezes the forcing slice, as
 the reference refreshes forcing only between CVode calls,
 ``shud.cpp:91-155``).
@@ -41,6 +47,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from shud_tpu_torch.solver import kernels
+from shud_tpu_torch.solver.kernels import history as _history
 
 
 class SolverConfig(NamedTuple):
@@ -313,101 +322,43 @@ def functions(f, params, linearize=None):
     return rhs, lin
 
 
-def _history(cfg: SolverConfig) -> bool:
-    # the history predictor needs max_order <= 2 (no y_prev3 in the carry);
-    # BDF3 runs keep Hermite
-    return cfg.history_predictor and cfg.max_order < 3
-
-
 def active(c: Carry, tout, nsteps0, cfg: SolverConfig) -> torch.Tensor:
     """JAX's ``step_cond``: t short of *tout* and fewer than ``max_steps``
     steps since *nsteps0* (the per-window backstop)."""
     return (c.t < tout - 1e-9) & (c.nsteps - nsteps0 < cfg.max_steps)
 
 
-def _over(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """A state over a 0-d step size, rounded as PyTorch divides a tensor
-    by a host scalar on its device: the product with the reciprocal on
-    CUDA, the quotient on the CPU (JAX's arithmetic there).  The step
-    sizes were host scalars before they were device tensors, and either
-    rounding, moved by an ulp, moves a storm's float32 trajectory at the
-    infiltration switch past the bars that hold the paths together
-    (``chip_smoke.py`` phases 8 and 17, ``tests/test_torch_mega.py``)."""
-    return x * (1.0 / s) if x.is_cuda else x / s
-
-
-def step_begin(rhs, lin, c: Carry, tout, cfg: SolverConfig, group=None):
+def step_begin(rhs, lin, c: Carry, tout, cfg: SolverConfig, group=None,
+               scratch=None):
     """A step up to its first Newton iteration: the step size, the
     predictor, the BDF coefficients and one iteration.  Returns
-    ``(StepPlan, NewtonIter)``."""
-    ewt = 1.0 / (cfg.rtol * torch.abs(c.y) + cfg.atol)
-    h = torch.minimum(torch.clamp(c.h, max=cfg.h_max), tout - c.t)
-    h = torch.clamp(h, min=cfg.h_min)
-    tau, tau2 = c.h_prev, c.h_prev2
-    use2, use3 = c.order >= 2, c.order >= 3
-    fy0 = None
-    if _history(cfg):
-        # state-history predictors (no RHS evaluation): order 1 constant,
-        # order 2 the quadratic Lagrange through (t-tau-tau2, y_prev2),
-        # (t-tau, y_prev), (t, y) extrapolated to t+h
-        e0h = h + tau + tau2
-        e1h = h + tau
-        d01 = _over(c.y_prev - c.y_prev2, tau2)
-        d12 = _over(c.y - c.y_prev, tau)
-        d2 = _over(d12 - d01, tau + tau2)
-        y_pred = torch.where(use2, c.y_prev2 + d01 * e0h + d2 * e0h * e1h,
-                             c.y)
-    else:
-        fy0 = rhs(c.t, c.y)  # slope at the current point (predictors)
-        # order 1: forward Euler; order 2: quadratic Hermite through
-        # (y_prev, y, fy0); order 3: cubic Hermite (below)
-        a_coef = _over(c.y_prev - c.y + fy0 * tau, tau * tau)
-        y_pred = torch.where(use2, c.y + fy0 * h + a_coef * h * h,
-                             h * fy0 + c.y)
-    if cfg.max_order >= 3:
-        # Hermite divided differences, nodes [t-tau-tau2, t-tau, t, t]
-        w01, w12, w02 = 1.0 / tau2, 1.0 / tau, 1.0 / (tau + tau2)
-        e0 = h + tau + tau2
-        e1 = h + tau
-        d01 = (c.y_prev - c.y_prev2) * w01
-        d12 = (c.y - c.y_prev) * w12
-        d2_012 = (d12 - d01) * w02
-        d2_122 = (fy0 - d12) * w12
-        d3 = (d2_122 - d2_012) * w02
-        y_pred = torch.where(
-            use3, c.y_prev2 + d01 * e0 + d2_012 * e0 * e1 + d3 * e0 * e1 * h,
-            y_pred)
-
-    # variable-step BDF coefficients
-    r = h / tau
-    a1_2 = (1 + r) ** 2 / (1 + 2 * r)
-    a2_2 = -(r**2) / (1 + 2 * r)
-    b_2 = (1 + r) / (1 + 2 * r)
-    c0 = torch.where(use2, a1_2 * c.y + a2_2 * c.y_prev, c.y)
-    bh = torch.where(use2, b_2, 1.0) * h
-    if cfg.max_order >= 3:
-        # variable-step BDF3 via the Lagrange-derivative form
-        s1 = h + tau
-        s2 = h + tau + tau2
-        g0 = 1.0 / h + 1.0 / s1 + 1.0 / s2
-        g1 = -(s1 * s2) / (h * tau * (tau + tau2))
-        g2 = (h * s2) / (s1 * tau * tau2)
-        g3 = -(h * s1) / (s2 * (tau + tau2) * tau2)
-        c0 = torch.where(
-            use3, _over(-(g1 * c.y + g2 * c.y_prev + g3 * c.y_prev2), g0),
-            c0)
-        bh = torch.where(use3, 1.0 / g0, bh)
-
+    ``(StepPlan, NewtonIter)``; with a *scratch* (the kernel route) both
+    are views of it."""
+    fy0 = None if _history(cfg) else rhs(c.t, c.y)  # Hermite predictors
+    if scratch is not None:
+        kernels.bdf_begin(scratch, c, tout, cfg, fy0)
+        plan = StepPlan(scratch.h, scratch.ewt, scratch.y_pred, scratch.c0,
+                        scratch.bh, scratch.t_new)
+        return plan, newton_iter(lin, plan, plan.y_pred, scratch.it, cfg,
+                                 scratch=scratch)
+    h, ewt, y_pred, c0, bh = kernels.predict(c, tout, cfg, fy0)
     plan = StepPlan(h, ewt, y_pred, c0, bh, c.t + h)
     it0 = torch.zeros((), dtype=torch.int64, device=c.y.device)
     return plan, newton_iter(lin, plan, y_pred, it0, cfg, group)
 
 
 def newton_iter(lin, plan: StepPlan, y, it, cfg: SolverConfig,
-                group=None) -> NewtonIter:
+                group=None, scratch=None) -> NewtonIter:
     """One Newton-GMRES iteration on y = c0 + bh·f(t_new, y), f linearized
-    once at *y* (``lin(t, y) -> (f(t, y), v -> J·v)``)."""
+    once at *y* (``lin(t, y) -> (f(t, y), v -> J·v)``).  With a *scratch*
+    the kernel route, which leaves the iterate in the scratch (*it* is its
+    own)."""
     fy, jvp = lin(plan.t_new, y)
+    if scratch is not None:
+        s = scratch
+        kernels.newton_update(s, jvp, y, fy, plan.c0, plan.bh, s.y)
+        kernels.bdf_finish(s, kernels.NEWTON, cfg, torch.sum(s.sq[0]))
+        return NewtonIter(s.y, s.dnorm, s.it, s.more)
     # residual: y - bh*f(y) - c0
     res = y - plan.bh * fy - plan.c0
 
@@ -420,36 +371,32 @@ def newton_iter(lin, plan: StepPlan, y, it, cfg: SolverConfig,
 
 
 def step_end(c: Carry, plan: StepPlan, nw: NewtonIter, cfg: SolverConfig,
-             quad_fn=None, params=None, group=None) -> Carry:
+             quad_fn=None, params=None, group=None, scratch=None,
+             tout=None, nsteps0=None, go=None) -> Carry:
     """The error test and the step controller: the carry after the step,
-    every decision a select."""
+    every decision a select.  With a *scratch* (the kernel route) the
+    carry's tensors are updated in place, and with *go* (a 0-d bool) the
+    step loop's condition ``active(c, tout, nsteps0, cfg)`` after the
+    step is written there too."""
     h = plan.h
-    conv = nw.dnorm <= cfg.newton_tol
-    # predictor-corrector difference estimates the LTE at this order
-    err = _wrms(nw.y - plan.y_pred, plan.ewt, group) * 0.5
-    accept = conv & (err <= 1.0)
-    at_hmin = h <= cfg.h_min * (1 + 1e-9)
-    accept = accept | (at_hmin & conv)
-
-    # the power in float64, rounded once to the state's dtype: the host's
-    # powf (numpy's, XLA's on the CPU) is correctly rounded almost always,
-    # CUDA's is not (up to 2 ulp), and an ulp in a step size moves a
-    # storm's float32 trajectory at the infiltration switch
-    order_p1 = (c.order + 1).to(err.dtype)
-    eta_raw = cfg.safety * ((1.0 / torch.clamp(err, min=1e-10)).double()
-                            ** (1.0 / order_p1).double()).to(err.dtype)
-    h_acc = h * torch.clamp(eta_raw, cfg.eta_min, cfg.eta_max)
-    h_rej = torch.where(conv, h * torch.clamp(eta_raw, 0.1, 0.5), h * 0.25)
-    h_next = torch.where(accept, h_acc, torch.clamp(h_rej, min=cfg.h_min))
-    new_order = torch.where(accept,
-                            torch.clamp(c.order + 1, max=cfg.max_order),
-                            torch.where(conv, c.order, 1))
-
     quad = c.quad
+    rates = None
     if quad_fn is not None:
         # midpoint rule: one rate evaluation a step, added when accepted
         y_mid = 0.5 * (c.y + nw.y)
         rates = quad_fn(c.t + 0.5 * h, y_mid, params)
+    if scratch is not None:
+        kernels.bdf_finish(scratch, kernels.STEP, cfg,
+                           torch.sum(scratch.sq[1]), c, tout, nsteps0, go)
+        if rates is not None:
+            quad = {k: q + torch.where(scratch.accept, h * rates[k], 0.0)
+                    for k, q in c.quad.items()}
+        return c._replace(quad=quad)
+    conv = nw.dnorm <= cfg.newton_tol
+    # predictor-corrector difference estimates the LTE at this order
+    err = _wrms(nw.y - plan.y_pred, plan.ewt, group) * 0.5
+    accept, h_next, new_order = kernels.control(c.order, h, conv, err, cfg)
+    if rates is not None:
         quad = {k: q + torch.where(accept, h * rates[k], 0.0)
                 for k, q in c.quad.items()}
 
@@ -466,20 +413,23 @@ def step_end(c: Carry, plan: StepPlan, nw: NewtonIter, cfg: SolverConfig,
         y_prev2=torch.where(accept, c.y_prev, c.y_prev2), quad=quad)
 
 
-def _step(rhs, lin, c: Carry, tout, params, cfg, quad_fn, group) -> Carry:
+def _step(rhs, lin, c: Carry, tout, nsteps0, params, cfg, quad_fn, group,
+          scratch, go) -> Carry:
     """One step, its Newton loop on the host: JAX's one unconditional
     iteration, then more while ``dnorm > newton_tol`` (read from the
     device), up to ``newton_iters``."""
-    plan, nw = step_begin(rhs, lin, c, tout, cfg, group)
+    plan, nw = step_begin(rhs, lin, c, tout, cfg, group, scratch)
     for _ in range(1, cfg.newton_iters):
         if not _read(nw.more):
             break
-        nw = newton_iter(lin, plan, nw.y, nw.it, cfg, group)
-    return step_end(c, plan, nw, cfg, quad_fn, params, group)
+        nw = newton_iter(lin, plan, nw.y, nw.it, cfg, group, scratch)
+    return step_end(c, plan, nw, cfg, quad_fn, params, group, scratch, tout,
+                    nsteps0, go)
 
 
 def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
-             quad_fn=None, linearize=None, group=None) -> BDFState:
+             quad_fn=None, linearize=None, group=None,
+             solver_kernel: bool = True) -> BDFState:
     """Advance the ODE to ``tout`` — one ``CVode(CV_NORMAL)`` equivalent.
     ``f(t, y, params)`` returns dy/dt.
 
@@ -497,13 +447,29 @@ def solve_to(f, state: BDFState, tout, params, cfg: SolverConfig,
     dot products and norms are then global (``_dot``), so every rank takes
     the same steps, Newton iterations and NFE.
 
+    *solver_kernel* (without a *group*): the step body through the kernels
+    of ``solver/kernels.py`` (their plain versions on the CPU), on a
+    scratch made for this call and a copy of the state; False, the torch
+    pieces.  The two are bitwise equal.
+
     The step loop and the Newton loop run on the host, each condition read
     from the device (``_read``); ``solver/graph.WindowGraph`` replays the
     same body from a captured CUDA graph instead."""
     rhs, lin = functions(f, params, linearize)
     c = to_carry(state)
     tout = torch.full((), float(tout), dtype=c.t.dtype, device=c.t.device)
-    nsteps0 = c.nsteps
-    while _read(active(c, tout, nsteps0, cfg)):
-        c = _step(rhs, lin, c, tout, params, cfg, quad_fn, group)
+    nsteps0 = c.nsteps.clone()
+    go = active(c, tout, nsteps0, cfg)
+    scratch = None
+    if solver_kernel and group is None:
+        # the kernels update the carry in place: its own copies of the
+        # state (which may be one tensor three times)
+        scratch = kernels.Scratch(c.y, cfg.krylov_m)
+        c = c._replace(y=c.y.clone(), y_prev=c.y_prev.clone(),
+                       y_prev2=c.y_prev2.clone())
+    while _read(go):
+        c = _step(rhs, lin, c, tout, nsteps0, params, cfg, quad_fn, group,
+                  scratch, go if scratch is not None else None)
+        if scratch is None:
+            go = active(c, tout, nsteps0, cfg)
     return finish(c, state.quad is not None)

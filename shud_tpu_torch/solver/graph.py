@@ -41,7 +41,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from shud_tpu_torch.core.cuda_build import load_library
-from shud_tpu_torch.solver import bdf
+from shud_tpu_torch.solver import bdf, kernels
 from shud_tpu_torch.solver.bdf import (
     COUNTS, STEPS, BDFState, Carry, SolverConfig, active, from_carry,
     functions, newton_iter, scalars, step_begin, step_end, to_carry)
@@ -55,9 +55,11 @@ warmup_windows = 0
 
 
 def copy_into(dst, src) -> None:
-    """Each tensor of *src* into its counterpart of *dst* (same pytree)."""
+    """Each tensor of *src* into its counterpart of *dst* (same pytree);
+    a tensor that is its own counterpart (the kernel route's in-place
+    pieces) is left alone."""
     for d, s in zip(pytree.tree_leaves(dst), pytree.tree_leaves(src)):
-        if isinstance(d, torch.Tensor):
+        if isinstance(d, torch.Tensor) and d is not s:
             d.copy_(s)
 
 
@@ -193,6 +195,19 @@ class Program:
                "instantiating it")
         self._exec = exe
 
+    def node_counts(self) -> dict:
+        """Each captured piece's nodes by type (``kernel``, ``copy``,
+        ``memset``, ``other``): what one replay of the piece runs on the
+        device."""
+        lib, out = load_library(), {}
+        for name, g in self._segments.items():
+            n = (ctypes.c_ulonglong * 4)()
+            _check(lib.shud_graph_node_types(
+                ctypes.c_void_p(g.raw_cuda_graph()), n),
+                f"counting the {name} piece's nodes")
+            out[name] = dict(zip(("kernel", "copy", "memset", "other"), n))
+        return out
+
     def launch(self, device: torch.device) -> None:
         """Run the program once: one graph launch on *device*'s current
         stream, or the pieces eagerly."""
@@ -239,15 +254,19 @@ class SolverPieces:
     parameters the RHS reads are static too.  ``pieces`` and ``nodes``
     are the solve as a ``Program``'s parts: ``head``, WHILE(active)
     {``begin``, Newton iterations 2..``newton_iters`` under nested IFs,
-    ``end`` (which runs ``head`` again)}, ``tail``.  *prefix* names the
-    pieces (several solvers in one program); *tout* is a 0-d buffer that
-    several solvers may share (else one of its own)."""
+    ``end`` (which writes ``active`` again)}, ``tail``.  *prefix* names
+    the pieces (several solvers in one program); *tout* is a 0-d buffer
+    that several solvers may share (else one of its own).  *kernel*: the
+    step body through the solver kernels (``solver/kernels.py``, their
+    plain versions on the CPU) on a scratch of this solver's; False, the
+    torch pieces."""
 
     def __init__(self, rhs, lin, cfg: SolverConfig, quad_fn, params,
-                 c: Carry, prefix: str = "", tout=None):
+                 c: Carry, prefix: str = "", tout=None, kernel: bool = True):
         self.rhs, self.lin, self.cfg = rhs, lin, cfg
         self.quad_fn, self.params, self.c = quad_fn, params, c
         self.prefix = prefix
+        self.scratch = kernels.Scratch(c.y, cfg.krylov_m) if kernel else None
         dev = c.y.device
         self.tout = (torch.zeros((), dtype=c.t.dtype, device=dev)
                      if tout is None else tout)
@@ -269,16 +288,24 @@ class SolverPieces:
 
     def begin(self):
         self.plan, self.nw = step_begin(self.rhs, self.lin, self.c,
-                                        self.tout, self.cfg)
+                                        self.tout, self.cfg,
+                                        scratch=self.scratch)
 
     def newton(self):
         copy_into(self.nw, newton_iter(self.lin, self.plan, self.nw.y,
-                                       self.nw.it, self.cfg))
+                                       self.nw.it, self.cfg,
+                                       scratch=self.scratch))
 
     def end(self):
-        copy_into(self.c, step_end(self.c, self.plan, self.nw, self.cfg,
-                                   self.quad_fn, self.params))
-        self.head()
+        if self.scratch is None:
+            copy_into(self.c, step_end(self.c, self.plan, self.nw, self.cfg,
+                                       self.quad_fn, self.params))
+            self.head()
+            return
+        copy_into(self.c, step_end(
+            self.c, self.plan, self.nw, self.cfg, self.quad_fn, self.params,
+            scratch=self.scratch, tout=self.tout, nsteps0=self.nsteps0,
+            go=self.active))
 
     def tail(self):
         self.packed.copy_(torch.cat([scalars(self.c),
@@ -333,12 +360,14 @@ class WindowGraph:
     last one returned), it is not uploaded again.
 
     ``stats``: steps of each window, host syncs, graph launches, and the
-    warm-up, capture and instantiation seconds."""
+    warm-up, capture and instantiation seconds.  *solver_kernel*: the step
+    body through the solver kernels (``SolverPieces``)."""
 
     def __init__(self, f, linearize, cfg: SolverConfig, quad_fn=None,
-                 capture: "bool | None" = None):
+                 capture: "bool | None" = None, solver_kernel: bool = True):
         self.f, self.linearize, self.cfg = f, linearize, cfg
         self.quad_fn, self.capture = quad_fn, capture
+        self.solver_kernel = solver_kernel
         self.params = self.prog = self.program = None
         self._last = None
         self.stats = {"steps": [], "syncs": 0, "warmup_newton_iters": 0}
@@ -373,7 +402,8 @@ class WindowGraph:
         self.params = clone(params)
         rhs, lin = functions(self.f, self.params, self.linearize)
         p = self.prog = SolverPieces(rhs, lin, self.cfg, self.quad_fn,
-                                     self.params, clone(to_carry(state)))
+                                     self.params, clone(to_carry(state)),
+                                     kernel=self.solver_kernel)
         self.program = Program(
             {"head": p.head, **p.pieces(), "tail": p.tail},
             ("head", p.loop(), "tail"), self.capture)

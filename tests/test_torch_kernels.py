@@ -520,3 +520,133 @@ def test_split_graph_matches_eager_loop(with_lake):
     torch.cuda.synchronize()
     counts = {**edge.device_launch_counts(), **M.device_launch_counts()}
     assert not any(counts.values()), counts
+
+
+def _solver_counts():
+    from shud_tpu_torch.solver import kernels as K
+
+    torch.cuda.synchronize()
+    return K.device_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("n", (32768, 131072))
+def test_solver_kernels_match_plain(n, dtype):
+    """The solver's four kernels (csrc/bdf.cu) against their plain
+    versions on the same inputs (tests/torch_variants.solver_kernel_cases:
+    every branch of each), bitwise; each call one device launch of its
+    kernel and of no other; a whole Newton update (m = 3) through them
+    bitwise its plain route, with 10 axpy and 4 column launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from torch_variants import solver_kernel_cases
+
+    from shud_tpu_torch.solver import kernels as K
+
+    for case in solver_kernel_cases(n, dtype, "cuda", seed=n):
+        name, label = case.name, case.label
+        before = _solver_counts()
+        got = case.run(True)
+        after = _solver_counts()
+        want = case.run(False)
+        delta = {k: after[k] - before[k] for k in after}
+        expect = ({"krylov_axpy": 10, "krylov_column": 4}
+                  if name == "newton_update" else {name: 1})
+        assert delta == {k: expect.get(k, 0) for k in delta}, (label, delta)
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(
+                got[k], want[k]), (name, label, k)
+    assert K.launch_counts["bdf_begin"] > 0
+
+
+def test_solver_kernels_refuse_bad_inputs():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from shud_tpu_torch.solver import kernels as K
+
+    x = torch.zeros(64, device="cuda")
+    k = torch.ones((), device="cuda")
+    with pytest.raises(ValueError):
+        K.krylov_axpy(K.MATVEC, k, x, torch.zeros(63, device="cuda"), x)
+    with pytest.raises(ValueError):
+        K.krylov_axpy(K.MATVEC, k, x, x.double(), x)
+    with pytest.raises(ValueError):
+        K.Scratch(x, K.MAX_KRYLOV + 1)
+    with pytest.raises(ValueError):
+        K.Scratch(x.half(), 3)
+
+
+@pytest.mark.parametrize("mega", (True, False))
+def test_solver_kernels_match_torch_pieces(mega):
+    """The fused driver's intervals on the solver kernels (an interval
+    graph) bitwise the eager loop on the solver's torch pieces
+    (``solver_kernel=False``) after every interval, with equal steps, NFE
+    and Newton iterations; the kernels' device counts: per step one
+    bdf_begin and one step end, per Newton iteration one Newton tail,
+    1 + m + m(m+1)/2 axpy and m + 1 column launches (the graph's warm-up:
+    one step, two iterations)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs and kernels)")
+    from shud_tpu_torch.driver.fused import FusedSimulation
+    from shud_tpu_torch.solver import bdf
+    from shud_tpu_torch.solver import kernels as K
+    from shud_tpu_torch.utils.synthetic import make_synthetic_project
+
+    sims = {k: FusedSimulation.create(
+        "synthetic", inp=make_synthetic_project(24, 16, end_day=1.0),
+        float_dtype=torch.float32, mega=mega, device="cuda",
+        captured=k, solver_kernel=k) for k in (True, False)}
+    K.reset_launch_counts()
+    iters = dict.fromkeys(sims, 0)
+    for minutes in (60.0, 60.0, 30.0):
+        outs = {}
+        for k, sim in sims.items():
+            it0 = bdf.newton_iters
+            outs[k] = sim.advance_interval(minutes)
+            iters[k] += bdf.newton_iters - it0
+        _same(outs[True], outs[False], "outputs")
+        _same(tuple(sims[True].bdf), tuple(sims[False].bdf), "bdf")
+        assert iters[True] == iters[False] > 0
+    counts = _solver_counts()
+    m, steps, it = sims[True].cfg.krylov_m, sims[True].bdf.nsteps + 1, \
+        iters[True] + 2
+    assert counts == {"bdf_begin": steps, "krylov_axpy":
+                      (1 + m + m * (m + 1) // 2) * it,
+                      "krylov_column": (m + 1) * it,
+                      "bdf_finish": it + steps}, counts
+
+
+def test_split_graph_solver_kernels_match_torch_pieces():
+    """The -g driver's window on the card with the solver kernels (a
+    SplitGraph, five scratches) bitwise the eager loop on the torch
+    pieces (``sweep_window(solver_kernel=False)``) over 3 storm windows on
+    the lake mesh (float64)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs)")
+    from torch_variants import make_project
+
+    from shud_tpu_torch.driver import uncoupled as U
+    from shud_tpu_torch.driver.simulate import Simulation
+
+    inp = make_project("torch", "lake", 24, 16, 1.0)
+    inp.forc.t_min = [t - 720.0 for t in inp.forc.t_min]  # the storm
+    inp.control.day_start = 0.5
+    sim = Simulation.create("synthetic", inp=inp, float_dtype=torch.float64,
+                            device="cuda")
+    ne, nr, nl = sim.md.num_ele, sim.md.num_riv, sim.md.num_lake
+    ua = ub = U.init_uncoupled(sim.bdf.y, ne, nr, sim.t, sim.cfg, nl=nl)
+    g = U.SplitGraph(sim.dm, sim.cfg)
+    t = sim.t
+    for w in range(3):
+        tout = t + 10.0
+        fs, cf = sim.forcing_slice(tout)
+        ua, ha = U.sweep_window(sim.dm, fs, cf, sim.buckets, ua, t, tout,
+                                sim.cfg, solver_kernel=False)
+        ub, hb = g.sweep(fs, cf, sim.buckets, ub, t, tout)
+        t = tout
+        for part in U.PARTS:
+            _same(tuple(getattr(ua, part)), tuple(getattr(ub, part)),
+                  f"window {w} {part}")
+        _same(ha, hb, f"window {w} values")
+    assert g.capture and all(
+        sp.scratch is not None for sp in g.pieces.solvers.values())

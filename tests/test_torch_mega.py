@@ -274,8 +274,8 @@ def test_linearize_mega_matches_func_jvp_route(monkeypatch):
     hook, calls_hook, it_hook = window()
     solve_to = fused.solve_to
     monkeypatch.setattr(fused, "solve_to",
-                        lambda f, st, tout, p, cfg, quad_fn, linearize:
-                        solve_to(f, st, tout, p, cfg, quad_fn))
+                        lambda f, st, tout, p, cfg, quad_fn, linearize, **kw:
+                        solve_to(f, st, tout, p, cfg, quad_fn, **kw))
     ref, calls_ref, it_ref = window()
     assert torch.equal(hook.bdf.y, ref.bdf.y)
     assert (hook.bdf.nsteps, hook.bdf.nfe) == (ref.bdf.nsteps, ref.bdf.nfe)

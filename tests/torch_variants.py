@@ -235,3 +235,219 @@ def write_cmfd_netcdf3(inp, inpath: str, end_min: float):
     inp.control.forcing_mode = "NETCDF"
     inp.control.forcing_cfg = "forcing.cfg"
     return t_min, data
+
+
+def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
+    """One call of each solver kernel (``shud_tpu_torch/solver/kernels``)
+    per case, on state-sized inputs made with numpy from *seed*: a list of
+    ``SolverCase``.  ``case.prepare(kernel)`` makes fresh inputs and
+    returns ``(call, outputs, library)``: ``call()`` runs the wrapper
+    (*kernel* True) or its plain version once on them, ``outputs()`` gives
+    every output, ``library()`` is one PyTorch call computing the same
+    function on the same inputs where there is one (the matvec and
+    Gram-Schmidt updates: ``torch.addcmul``), else None;
+    ``case.run(kernel)`` calls and returns the outputs.  S1 on orders 1-3 with the
+    history predictor on and off, S2 in its three modes, S3's first
+    vector, a column, a breakdown column, a zero beta and the last
+    column's solve (m = 3 and 5, with and without the norms), S4's Newton
+    tail above and below the tolerance and its step end accepted,
+    rejected, not converged and at h_min.  "newton_update" runs S2 and S3
+    through a whole Newton update (a diagonal J, m = 3).  ``vectors``: the
+    state-sized vectors a call reads and writes (each once), ``ops`` its
+    operations an entry."""
+    import torch
+
+    from shud_tpu_torch.solver import bdf
+    from shud_tpu_torch.solver import kernels as K
+
+    def vec(rng, lo=None, hi=None, scale=1.0):
+        a = (rng.uniform(lo, hi, n) if lo is not None
+             else scale * rng.standard_normal(n))
+        return torch.as_tensor(a, device=device).to(dtype)
+
+    def sc(v, dt=None):
+        return torch.tensor(v, dtype=dt or dtype, device=device)
+
+    def carry(rng, order, h=0.73, tout=20.0):
+        y = vec(rng, 0.0, 2.0)
+        yp = y + vec(rng, scale=1e-3)
+        yp2 = yp + vec(rng, scale=1e-3)
+        i64 = torch.int64
+        c = bdf.Carry(t=sc(700.25), h=sc(h), h_prev=sc(0.5), h_prev2=sc(0.31),
+                      order=sc(order, i64), nfe=sc(40, i64),
+                      nsteps=sc(9, i64), nfails=sc(1, i64),
+                      nnifails=sc(0, i64), nni=sc(18, i64), y=y, y_prev=yp,
+                      y_prev2=yp2, quad={})
+        return c, sc(700.25 + tout)
+
+    def cfg_of(history=True, max_order=2, m=3):
+        return bdf.SolverConfig(max_order=max_order, history_predictor=history,
+                                krylov_m=m)
+
+    cases = []
+
+    def begin_case(history, max_order, order, tout):
+        def prepare(kernel):
+            rng = np.random.default_rng(seed)
+            cfg = cfg_of(history, max_order)
+            c, t_out = carry(rng, order, tout=tout)
+            fy0 = None if K.history(cfg) else vec(rng, scale=1e-3)
+            s = K.Scratch(c.y, cfg.krylov_m)
+            fn = K.bdf_begin if kernel else K.bdf_begin_plain
+            return (lambda: fn(s, c, t_out, cfg, fy0),
+                    lambda: {"ewt": s.ewt, "y_pred": s.y_pred, "c0": s.c0,
+                             "scal": s.scal, "it": s.it}, None)
+        return prepare
+
+    for history, max_order in ((True, 2), (False, 2), (False, 3)):
+        for order in range(1, max_order + 1):
+            for tout in (20.0, 0.2):
+                cases.append(SolverCase(
+                    "bdf_begin", f"history={history} max_order={max_order} "
+                    f"order={order} tout=+{tout}",
+                    begin_case(history, max_order, order, tout),
+                    6 if history else 7, 12 if max_order < 3 else 30))
+
+    def axpy_case(mode):
+        def prepare(kernel):
+            rng = np.random.default_rng(seed + 1)
+            x, y, z = vec(rng), vec(rng), vec(rng)
+            k = sc(float(rng.uniform(0.1, 3.0)))
+            out = y if mode == K.GRAM_SCHMIDT else torch.empty_like(x)
+            fn = K.krylov_axpy if kernel else K.krylov_axpy_plain
+            zz = z if mode == K.RESIDUAL else None
+            return (lambda: fn(mode, k, x, y, out, zz),
+                    lambda: {"out": out},
+                    {K.MATVEC: lambda: torch.addcmul(x, k, y, value=-1),
+                     K.GRAM_SCHMIDT: lambda: torch.addcmul(y, k, x, value=-1)
+                     }.get(mode))
+        return prepare
+
+    for mode, label in ((K.RESIDUAL, "residual"), (K.MATVEC, "matvec"),
+                        (K.GRAM_SCHMIDT, "gram_schmidt")):
+        cases.append(SolverCase("krylov_axpy", label, axpy_case(mode),
+                                4 if mode == K.RESIDUAL else 3,
+                                4 if mode == K.RESIDUAL else 3))
+
+    def column_case(mode, j, m, zero_beta=False, breakdown=None,
+                    norms=True):
+        def prepare(kernel):
+            rng = np.random.default_rng(seed + 2)
+            s = K.Scratch(vec(rng), m)
+            s.w.copy_(vec(rng))
+            for v in s.vs:
+                v.copy_(vec(rng))
+            s.ewt.copy_(vec(rng, 10.0, 1e3))
+            s.y_pred.copy_(vec(rng, 0.0, 2.0))
+            y = vec(rng, 0.0, 2.0)
+            dots = [0.0 if zero_beta else float(rng.uniform(0.5, 2.0)) ** 2]
+            for col in range(m):
+                w0 = float(rng.uniform(1.0, 2.0))
+                wn = (0.1 * s.tol * w0 if col == breakdown
+                      else float(rng.uniform(0.1, 0.9)) * w0)
+                dots += ([w0 * w0] + list(rng.standard_normal(col + 1))
+                         + [wn * wn])
+            dots = [sc(d) for d in dots]
+            y_out = torch.empty_like(y)
+            fn = K.krylov_column if kernel else K.krylov_column_plain
+
+            def outputs():
+                out = {"vs": torch.stack(s.vs), "scal": s.scal}
+                if mode == K.LAST:
+                    out.update(y_out=y_out, sq0=s.sq[0], sq1=s.sq[1])
+                return out
+            return (lambda: fn(s, mode, j, dots, y, y_out, norms), outputs,
+                    None)
+        return prepare
+
+    last = 2 * 3 + 10  # the last column's x, y + dy and the norms' terms
+    cases += [
+        SolverCase("krylov_column", "first", column_case(K.FIRST, 0, 3), 2,
+                   1),
+        SolverCase("krylov_column", "first, beta 0",
+                   column_case(K.FIRST, 0, 3, zero_beta=True), 2, 1),
+        SolverCase("krylov_column", "column 1", column_case(K.COLUMN, 1, 3),
+                   2, 1),
+        SolverCase("krylov_column", "column 0, breakdown",
+                   column_case(K.COLUMN, 0, 3, breakdown=0), 2, 1),
+        SolverCase("krylov_column", "last, m 3", column_case(K.LAST, 2, 3),
+                   3 + 6, last),
+        SolverCase("krylov_column", "last, m 5, breakdown at 3",
+                   column_case(K.LAST, 4, 5, breakdown=3), 5 + 6, last + 4),
+        SolverCase("krylov_column", "last, m 5, no norms",
+                   column_case(K.LAST, 4, 5, norms=False), 5 + 2, 10),
+        SolverCase("krylov_column", "last, beta 0",
+                   column_case(K.LAST, 2, 3, zero_beta=True), 3 + 6, last),
+    ]
+
+    def finish_case(mode, dnorm, err, h=0.73, it=2):
+        def prepare(kernel):
+            rng = np.random.default_rng(seed + 3)
+            cfg = cfg_of()
+            c, tout = carry(rng, 2, h=h)
+            s = K.Scratch(c.y, cfg.krylov_m)
+            s.y.copy_(c.y + vec(rng, scale=1e-3))
+            s.h.fill_(h)
+            s.t_new.copy_(c.t + s.h)
+            s.dnorm.fill_(dnorm)
+            s.it.fill_(it)
+            total = sc((2.0 * err) ** 2 * n)
+            go = torch.ones((), dtype=torch.bool, device=device)
+            nsteps0 = sc(3, torch.int64)
+            fn = K.bdf_finish if kernel else K.bdf_finish_plain
+            return (lambda: fn(s, mode, cfg, total, c, tout, nsteps0, go),
+                    lambda: {"scal": s.scal, "it": s.it, "more": s.more,
+                             "accept": s.accept, "active": go,
+                             **{k: getattr(c, k)
+                                for k in bdf.STEPS + bdf.COUNTS},
+                             "y": c.y, "y_prev": c.y_prev,
+                             "y_prev2": c.y_prev2}, None)
+        return prepare
+
+    cases += [
+        SolverCase("bdf_finish", "newton, above the tolerance",
+                   finish_case(K.NEWTON, 0.0, 0.83), 0, 0),
+        SolverCase("bdf_finish", "newton, below",
+                   finish_case(K.NEWTON, 0.0, 0.07), 0, 0),
+        SolverCase("bdf_finish", "step, accepted",
+                   finish_case(K.STEP, 0.1, 0.37), 7, 3),
+        SolverCase("bdf_finish", "step, rejected",
+                   finish_case(K.STEP, 0.1, 3.7), 7, 3),
+        SolverCase("bdf_finish", "step, not converged",
+                   finish_case(K.STEP, 0.9, 0.37, it=3), 7, 3),
+        SolverCase("bdf_finish", "step, at h_min",
+                   finish_case(K.STEP, 0.1, 37.0, h=1e-6), 7, 3),
+    ]
+
+    def update_case(kernel):
+        rng = np.random.default_rng(seed + 4)
+        s = K.Scratch(vec(rng), 3)
+        d = vec(rng, 0.5, 2.0)
+        y, fy, c0 = vec(rng, 0.0, 2.0), vec(rng, scale=1e-3), vec(rng, 0, 2)
+        s.ewt.copy_(vec(rng, 10.0, 1e3))
+        s.y_pred.copy_(c0)
+        return (lambda: K.newton_update(s, lambda v: d * v, y, fy, c0,
+                                        sc(0.37), s.y, plain=not kernel),
+                lambda: {"vs": torch.stack(s.vs), "w": s.w, "y": s.y,
+                         "sq0": s.sq[0], "sq1": s.sq[1], "scal": s.scal},
+                None)
+
+    cases.append(SolverCase("newton_update", "diagonal J, m 3", update_case,
+                            0, 0))
+    return cases
+
+
+@dataclasses.dataclass
+class SolverCase:
+    """A case of ``solver_kernel_cases``."""
+
+    name: str
+    label: str
+    prepare: object
+    vectors: int
+    ops: int
+
+    def run(self, kernel: bool) -> dict:
+        call, outputs, _ = self.prepare(kernel)
+        call()
+        return outputs()
