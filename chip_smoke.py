@@ -19,7 +19,8 @@ captured launch each time it runs.  Phases (any failed check raises
 and the script exits nonzero; nothing falls back to the CPU):
  1. the card (nvidia-smi name and power limit), exit if CUDA is absent;
  2. build both CUDA sources (one nvcc each, in parallel); registers and
-    spills of every kernel;
+    spills of every kernel; every instantiation of krylov_axpy and
+    krylov_column (SOLVER_INSTANCES) with no stack frame and no spill;
  3. the meshes: 131,072 and 32,768 cells, shuffled then RCM-localised,
     storm from minute 720; an 8,192-cell lake mesh; a 32,768-cell mesh
     with a branched river network;
@@ -50,7 +51,9 @@ and the script exits nonzero; nothing falls back to the CPU):
     trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
     krylov_m times and mega_diag once a window (the Newton iterations
     read from the device carry, plus the two of the interval graph's
-    warm-up, and its one warm-up window); every interval one graph launch,
+    warm-up, and its one warm-up window); every launch of krylov_axpy and
+    krylov_column the host made (warm-up and capture) in the wide form
+    (16 bytes of entries a thread); every interval one graph launch,
     host syncs = graph launches = intervals; output file set and finite
     values;
  8. 6 storm windows on each kernel path beside its references, window by
@@ -151,14 +154,21 @@ and the script exits nonzero; nothing falls back to the CPU):
     torch.profiler: the host launches no kernel outside the graph;
 21. the solver's four kernels (csrc/bdf.cu: bdf_begin, krylov_axpy,
     krylov_column, bdf_finish) against their plain versions at the main
-    paths' state sizes (98,432 and 393,472 entries) in float32 and
-    float64, every case of tests/torch_variants.solver_kernel_cases: each
-    output bitwise, each call one device launch; each kernel's time per
-    call, device time, cold L2 against its bound (its vectors once over
-    3.35 TB/s), its plain version's; the reductions kept as library calls
-    (torch.dot, torch.sum; torch.dot(out=) beside it), per call and in the
-    device nodes of one captured call; phase 20 also counts the nodes of
-    each captured piece of the interval graph on both routes.
+    paths' state sizes (98,432 and 393,472 entries), at 98,433 and 3, in
+    float32 and float64, every case of
+    tests/torch_variants.solver_kernel_cases (the last column at every
+    m = 1..8, S2 and S3 also on views one entry in): each output bitwise,
+    each call one device launch, S2 and S3 in the wide form but on the
+    views and below 16 bytes of entries; each kernel's time per call,
+    device time, cold L2 against its bound (its vectors once over 3.35
+    TB/s), its plain version's, for S2 in every mode and S3's first
+    vector, a column and the last column at m = 3 and 5, at both sizes;
+    torch.addcmul's the same way; a krylov_axpy call's host time apart
+    (the wrapper, the launch alone, the wrapper's pieces, torch.addcmul;
+    10^4 calls each); the reductions kept as library calls (torch.dot,
+    torch.sum; torch.dot(out=) beside it), per call and in the device
+    nodes of one captured call; phase 20 also counts the nodes of each
+    captured piece of the interval graph on both routes.
 The line before the last is a JSON object of the ten kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
@@ -171,6 +181,7 @@ import copy
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -203,6 +214,21 @@ SOLVER_TIMED = {"bdf_begin": "history=True max_order=2 order=2 tout=+20.0",
                 "krylov_axpy": "gram_schmidt",
                 "krylov_column": "last, m 3",
                 "bdf_finish": "step, accepted"}
+# phase 21's further timed cases of S2 and S3, at both main-path sizes:
+# every mode of each
+SOLVER_MODES_TIMED = {
+    "krylov_axpy": ("residual", "matvec"),
+    "krylov_column": ("first", "column 1", "last, m 5"),
+}
+# phase 21's sizes that are gated and not timed: n no multiple of 4 and
+# below it (S2's and S3's tail and one-entry form)
+SOLVER_ODD_SIZES = {"odd": 98433, "tiny": 3}
+# instantiations of S2 (2 types x 3 modes x 2 widths) and S3 (2 types x 2
+# widths x (FIRST/COLUMN + m = 1..8)) that phase 2 holds to no stack frame
+# and no spill
+SOLVER_INSTANCES = {"krylov_axpy": 12, "krylov_column": 36}
+# phase 21's host cost of a krylov_axpy call: calls a sample
+WRAPPER_CALLS = 10_000
 # phase 12's captured mega-32k storm window: device kernels a NFE at most,
 # the window's head and tail included
 MEGA_LAUNCHES_PER_NFE = 30
@@ -339,6 +365,23 @@ def scaled_err(ref, got) -> float:
 
 def abs_err(ref, got) -> float:
     return float((ref.double() - got.double()).abs().max())
+
+
+def ptxas_frames(report: str) -> dict:
+    """Each entry function's (stack frame, spill stores, spill loads) in
+    bytes, from nvcc's -Xptxas -v report."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name is not None:
+            out[name] = tuple(int(g) for g in m.groups())
+            name = None
+    return out
 
 
 def time_ms(fn, reps: int = 20) -> float:
@@ -978,6 +1021,8 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     wall = time.perf_counter() - t0
     counts = device_counts(kernels)
     host = host_counts(kernels)
+    forms = {n: dict(f) for k in kernels
+             for n, f in getattr(k, "form_counts", {}).items()}
     syncs, iters = bdf.host_syncs - syncs0, bdf.newton_iters - iters0
     ne = sim.md.num_ele
     check(sim.interval is not None and sim.interval.capture
@@ -996,7 +1041,8 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
     log(f"  cell-steps/s (NumEle x NFE / wall): {ne * nfe / wall:.6g}")
     log(f"  launches on the device: {counts}; per NFE "
         + " ".join(f"{k} {n / nfe:.3f}" for k, n in counts.items())
-        + f"; wrapper calls (captures and eager calls): {host}")
+        + f"; wrapper calls (captures and eager calls): {host}; their "
+        f"forms: {forms}")
     log(f"  interval graph: warm-up {graph['warmup_s']:.3f} s, capture "
         f"{graph['capture_s']:.3f} s, instantiate "
         f"{graph['instantiate_s']:.3f} s; steps per interval "
@@ -1022,7 +1068,8 @@ def phase_main(inp, torch, kernels, bdf, minutes, outdir, start_min=0.0):
                 host_syncs=syncs,
                 cell_steps_per_s=ne * nfe / wall, num_ele=ne,
                 output_files=len(files), launches=counts,
-                host_launches=host, graph=graph, mega=sim.mega is not None)
+                host_launches=host, forms=forms, graph=graph,
+                mega=sim.mega is not None)
 
 
 def storm_sim(inp, torch, float_dtype=None, start=720.0, per_window=False,
@@ -2361,6 +2408,12 @@ def phase_main_paths(inp, inp32, torch, edge, mega, solver, bdf,
         check({k: n[k] for k in want_solver} == want_solver,
               f"{name}: solver kernels {n} for {steps} steps and {it} "
               f"Newton iterations (want {want_solver})")
+        # every S2 and S3 launch the host made (the warm-up's and the
+        # capture's, which the graph replays) in the wide form
+        for k, f in run["forms"].items():
+            check(f["one"] == 0 and f["wide"] == run["host_launches"][k] > 0,
+                  f"{name}: {k} forms {f} for "
+                  f"{run['host_launches'][k]} launches")
         counts.update({k: run["launches"][k] for k in want.launch_counts})
         counts["solver_by_path"][name] = want_solver
         for k, v in want_solver.items():
@@ -2601,45 +2654,123 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
     return out
 
 
+def library_times(fn) -> dict:
+    """A library call's per call (CUDA events), warm device time
+    (profiler), and cold-L2 time alone (its profiler time plus the
+    cold-minus-warm difference of the events), as ``timed`` takes a
+    kernel's."""
+    ms = time_ms(fn)
+    dev_ms, launches = device_per_call(fn)
+    warm_ms, cold = device_ms(fn), cold_l2(fn)
+    cold["kernel_ms"] = (None if dev_ms is None
+                         else dev_ms + cold["event_device_ms"] - warm_ms)
+    return {"ms": ms, "device_ms": dev_ms, "device_launches": launches,
+            "event_device_ms": warm_ms, "cold_l2": cold}
+
+
+def host_ns(torch, fn, calls: int = WRAPPER_CALLS) -> float:
+    """Host time per call of *fn* (us): perf_counter_ns over *calls*
+    back-to-back calls and a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter_ns() - t0) / calls / 1e3
+
+
+def wrapper_costs(torch, solver, n: int) -> dict:
+    """Where a krylov_axpy call's host time goes (Gram-Schmidt, float32,
+    *n* entries), each in us per call over WRAPPER_CALLS calls: the
+    wrapper, its kernel's launch alone (the ctypes call on ready
+    arguments), torch.addcmul (the same function in one call), and the
+    wrapper's pieces in their old and new forms (the stream read, the
+    pointer array the parent built, the checks)."""
+    from shud_tpu_torch.core.cuda_build import load_library
+    from shud_tpu_torch.core.edge import on_cpu
+
+    x, y = (torch.randn(n, device=DEVICE) for _ in range(2))
+    k = torch.tensor(1e-6, device=DEVICE)
+    dev = y.get_device()
+    count = solver._counts.pointer("krylov_axpy", dev)
+    lib = load_library()
+    args = (0, solver.GRAM_SCHMIDT, 4, x.data_ptr(), y.data_ptr(), 0,
+            k.data_ptr(), y.data_ptr(), count, n,
+            torch.cuda.current_stream().cuda_stream)
+    costs = {
+        "wrapper": lambda: solver.krylov_axpy(solver.GRAM_SCHMIDT, k, x, y,
+                                              y),
+        "launch": lambda: lib.shud_krylov_axpy(*args),
+        "addcmul": lambda: torch.addcmul(y, k, x, value=-1),
+        "current_stream (parent)": lambda: torch.cuda.current_stream(
+            y.device).cuda_stream,
+        "raw_stream": lambda: solver._stream(dev),
+        "pointer array (parent)": lambda: solver._ptrs(
+            x, y, None, k, y, count),
+        "checks": lambda: (on_cpu(x, y, y, k),
+                           solver._checked("krylov_axpy", n, y.dtype, x, y,
+                                           None, y)),
+    }
+    out = {}
+    for name, fn in costs.items():
+        fn()
+        out[name] = min(host_ns(torch, fn) for _ in range(2))
+    out["wrapper less launch"] = out["wrapper"] - out["launch"]
+    log(f"  krylov_axpy host us a call (n {n}, {WRAPPER_CALLS} calls, the "
+        f"better of 2): " + "; ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out
+
+
 def phase_solver_kernels(sizes: dict, torch, solver, results,
                          device_times) -> dict:
     """Phase 21: the solver's four kernels (csrc/bdf.cu) against their
-    plain versions at the main paths' state sizes (*sizes*: name -> n) in
-    float32 and float64, on every case of
+    plain versions at the main paths' state sizes (*sizes*: name -> n) and
+    at SOLVER_ODD_SIZES in float32 and float64, on every case of
     ``torch_variants.solver_kernel_cases``: each output bitwise equal, each
     call one device launch of its kernel and of no other (a whole Newton
-    update: 10 axpy and 4 column launches).  Then each kernel's timed case
-    (SOLVER_TIMED) per call (CUDA events), device time and launches per
-    call (profiler), with a cold L2, beside its plain version and its
+    update: 10 axpy and 4 column launches), S2 and S3 in the wide form but
+    on the offset views and below 16 bytes of entries.  Then each kernel's
+    timed case (SOLVER_TIMED) and every other mode of S2 and S3
+    (SOLVER_MODES_TIMED) per call (CUDA events), device time and launches
+    per call (profiler), with a cold L2, beside its plain version and its
     bound (the vectors it reads and writes once over 3.35 TB/s); the
-    axpy's library call ``torch.addcmul``; and the reductions kept as
-    library calls, ``torch.dot`` and ``torch.sum``, per call and in the
-    device nodes one captured call adds (``torch.dot(..., out=)`` beside
-    it).  Times in float32 at every size, in float64 at the first; the
-    kernels line takes the first size's float32 times."""
+    axpy's library call ``torch.addcmul`` the same way; where a
+    krylov_axpy call's host time goes (wrapper_costs); and the reductions
+    kept as library calls, ``torch.dot`` and ``torch.sum``, per call and
+    in the device nodes one captured call adds (``torch.dot(..., out=)``
+    beside it).  Times in float32 at both main-path sizes, in float64 at
+    the first; the kernels line takes the first size's float32 times."""
     from torch_variants import solver_kernel_cases
 
     out = {"cases": {}, "timed": {}, "reductions": {}}
     first = next(iter(sizes))
-    for size, n in sizes.items():
+    for size, n in {**sizes, **SOLVER_ODD_SIZES}.items():
         for dtype in (torch.float32, torch.float64):
             tag = f"{size}-{str(dtype)[6:]}"
             gated = 0
             err = dict.fromkeys(solver.launch_counts, 0.0)
+            narrow_n = n < 16 // (torch.finfo(dtype).bits // 8)
             for case in solver_kernel_cases(n, dtype, DEVICE, seed=n):
+                solver.reset_launch_counts()
                 torch.cuda.synchronize()
-                before = solver.device_launch_counts()
                 got = case.run(True)
                 torch.cuda.synchronize()
-                after = solver.device_launch_counts()
+                delta = solver.device_launch_counts()
+                forms = {k: dict(v) for k, v in solver.form_counts.items()}
                 want = case.run(False)
-                delta = {k: after[k] - before[k] for k in after}
                 expect = ({"krylov_axpy": 10, "krylov_column": 4}
                           if case.name == "newton_update"
                           else {case.name: 1})
                 check(delta == {k: expect.get(k, 0) for k in delta},
                       f"solver kernels {tag} {case.label}: device launches "
                       f"{delta}")
+                narrow = narrow_n or "offset" in case.label
+                for k, f in forms.items():
+                    runs = expect.get(k, 0)
+                    check(f == {"wide": 0 if narrow else runs,
+                                "one": runs if narrow else 0},
+                          f"solver kernels {tag} {case.label}: {k} forms "
+                          f"{f}")
                 for k in want:
                     check(got[k].dtype == want[k].dtype
                           and torch.equal(got[k], want[k]),
@@ -2652,14 +2783,20 @@ def phase_solver_kernels(sizes: dict, torch, solver, results,
                 gated += 1
             out["cases"][tag] = gated
             log(f"  {tag} (n {n}): {gated} cases, every output bitwise its "
-                f"plain version, one device launch a call")
-            if dtype == torch.float64 and size != first:
+                f"plain version, one device launch a call, S2 and S3 "
+                f"{'one entry' if narrow_n else '16 bytes'} a thread (one "
+                f"entry on the offset views)")
+            if size not in sizes or (dtype == torch.float64
+                                     and size != first):
                 continue
             cases = {c.label: c for c in solver_kernel_cases(n, dtype,
                                                               DEVICE, seed=n)}
             rate = F32_OPS_PER_S if dtype == torch.float32 else F64_OPS_PER_S
             size_b = torch.finfo(dtype).bits // 8
-            for name, label in SOLVER_TIMED.items():
+            runs = [(name, label) for name, label in SOLVER_TIMED.items()]
+            runs += [(name, label) for name, labels in
+                     SOLVER_MODES_TIMED.items() for label in labels]
+            for name, label in runs:
                 case = cases[label]
                 kern = case.prepare(True)[0]
                 plain = case.prepare(False)[0]
@@ -2669,13 +2806,26 @@ def phase_solver_kernels(sizes: dict, torch, solver, results,
                 entry = {**rec[name], **dev[name], "case": label}
                 library = case.prepare(True)[2]
                 if library is not None:  # the same function in one call
-                    entry["library_ms"] = time_ms(library)
-                out["timed"][f"{name}@{tag}"] = entry
-                if size == first and dtype == torch.float32:
+                    lib_t = library_times(library)
+                    entry["library_ms"] = lib_t["ms"]
+                    entry["library"] = lib_t
+                    log(f"    torch.addcmul: {lib_t['ms']:.4f} ms per call "
+                        f"(CUDA events); device time {lib_t['device_ms']} "
+                        f"ms in {lib_t['device_launches']} launches; warm "
+                        f"L2 {lib_t['event_device_ms']:.5f} ms, cold L2 "
+                        f"{lib_t['cold_l2']['event_device_ms']:.5f} ms; "
+                        f"cold alone {lib_t['cold_l2']['kernel_ms']} ms")
+                key = (name if SOLVER_TIMED.get(name) == label
+                       else f"{name}[{label}]")
+                out["timed"][f"{key}@{tag}"] = entry
+                if (size == first and dtype == torch.float32
+                        and key == name):
                     results[name] = {k: entry[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}
                     device_times[name] = dev[name]
+            if size == first and dtype == torch.float32:
+                out["wrapper_us"] = wrapper_costs(torch, solver, n)
             a, b = (torch.randn(n, dtype=dtype, device=DEVICE)
                     for _ in range(2))
             slot = torch.zeros(4, dtype=dtype, device=DEVICE)
@@ -2746,6 +2896,15 @@ def main() -> int:
             log("  " + line.strip())
     check(lib is not None, "no kernel library")
     summary["build_s"] = info["seconds"]
+    frames = ptxas_frames(info["ptxas"])
+    for kern, want in SOLVER_INSTANCES.items():
+        got = {k: v for k, v in frames.items() if kern in k}
+        check(len(got) == want and all(v == (0, 0, 0)
+                                       for v in got.values()),
+              f"{kern}: {len(got)} instantiations (want {want}), stack "
+              f"frames and spills {sorted(set(got.values()))}")
+        log(f"  {kern}: {len(got)} instantiations, 0 bytes stack frame, "
+            f"0 bytes spill each")
 
     # phase 3: the meshes
     t0 = time.perf_counter()

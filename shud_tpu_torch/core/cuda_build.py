@@ -29,7 +29,8 @@ _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
-# path, seconds and ptxas report (registers, spills) of the last build
+# path, seconds and ptxas report (registers, spills) of the library's
+# build (the report kept beside the library when it was built before)
 build_info: dict = {}
 
 
@@ -76,8 +77,15 @@ def _build(out: Path) -> str:
         cmd = [_nvcc(), *_NVCC_FLAGS[:2], "-shared", "-o", str(lib),
                *(str(o) for *_, o in jobs)]
         log += _wait(_run(cmd, "link"), cmd)
+        _report(out).write_text(log)
         os.replace(lib, out)
     return log
+
+
+def _report(lib: Path) -> Path:
+    """Where a library's build keeps nvcc's report, so that a process
+    that finds the library built reads it too."""
+    return lib.with_suffix(".ptxas.txt")
 
 
 def load_library() -> ctypes.CDLL:
@@ -94,7 +102,8 @@ def load_library() -> ctypes.CDLL:
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(_BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        log = "" if out.exists() else _build(out)
+        log = (_report(out).read_text()
+               if out.exists() and _report(out).exists() else _build(out))
     lib = ctypes.CDLL(str(out))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.shud_edge_flux.argtypes = [p] * 17 + [i, i, p]
@@ -118,8 +127,9 @@ def load_library() -> ctypes.CDLL:
     ll, d = ctypes.c_longlong, ctypes.c_double
     dp, lp = ctypes.POINTER(d), ctypes.POINTER(ll)
     solver_args = {"bdf_begin": [i, pp, dp, lp, p],
-                   "krylov_axpy": [i, i, pp, ll, p],
-                   "krylov_column": [i, i, i, i, pp, pp, d, ll, p],
+                   "krylov_axpy": [i, i, i] + [p] * 6 + [ll, p],
+                   "krylov_column_scale": [i, i] + [p] * 4 + [d, p, ll, p],
+                   "krylov_column_last": [i, i, i, pp, pp, d, ll, p],
                    "bdf_finish": [i, i, pp, dp, lp, p]}
     for name, args in solver_args.items():
         getattr(lib, f"shud_{name}").argtypes = args

@@ -219,12 +219,12 @@ def edge_apply_plain(coeffs, tsf, tgw, tkh, et):
 def on_cpu(*tensors, what: str = "edge kernels") -> bool:
     """True for CPU tensors (the plain versions run), False for CUDA ones
     (the kernel launches); anything else is refused."""
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
+    if all(t.is_cuda for t in tensors):
+        return False
+    if all(t.is_cpu for t in tensors):
         return True
-    if devs != {"cuda"}:
-        raise ValueError(f"{what} take CPU or CUDA tensors, got {devs}")
-    return False
+    devs = {t.device.type for t in tensors}
+    raise ValueError(f"{what} take CPU or CUDA tensors, got {devs}")
 
 
 def _check(et, fields):

@@ -22,16 +22,25 @@ class LaunchCounts:
         self.names = tuple(names)
         self.host = dict.fromkeys(self.names, 0)
         self._device = {}  # device index -> int64 [len(names)]
+        self._address = {}  # (name, device index) -> its counter's address
 
-    def pointer(self, name: str, device: torch.device) -> int:
-        """The address of *name*'s device counter on *device* (made at the
-        first launch there, before any capture: a graph's warm-up runs
-        every piece eagerly, ``solver/graph.Program.build``)."""
-        counts = self._device.get(device.index)
-        if counts is None:
-            counts = self._device[device.index] = torch.zeros(
-                len(self.names), dtype=torch.int64, device=device)
-        return counts.data_ptr() + 8 * self.names.index(name)
+    def pointer(self, name: str, device) -> int:
+        """The address of *name*'s device counter on *device* (a CUDA
+        device or its index), made at the first launch there, before any
+        capture: a graph's warm-up runs every piece eagerly,
+        ``solver/graph.Program.build``.  A reset zeroes the counters in
+        place, so an address holds for the process."""
+        index = device if isinstance(device, int) else device.index
+        addr = self._address.get((name, index))
+        if addr is None:
+            counts = self._device.get(index)
+            if counts is None:
+                counts = self._device[index] = torch.zeros(
+                    len(self.names), dtype=torch.int64,
+                    device=torch.device("cuda", index))
+            addr = self._address[(name, index)] = (
+                counts.data_ptr() + 8 * self.names.index(name))
+        return addr
 
     def reset(self) -> None:
         for k in self.host:

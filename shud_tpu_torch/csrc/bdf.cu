@@ -24,10 +24,9 @@
 // torch.dot and torch.sum in solver/kernels.py: no hand kernel reproduces
 // cuBLAS's or PyTorch's summation order, and with those kept a trajectory
 // stays bitwise the torch pieces' (solver_kernel=False).  The scalars a
-// kernel needs are recomputed by each thread (or, for the last column's
-// chain, by thread 0 of each block into shared memory) from the reductions'
-// results, so no kernel needs a grid barrier; block 0 writes what later
-// kernels or the host read (the step's h, bh, t_new; beta and ys).
+// kernel needs are recomputed by each thread from the reductions' results,
+// so no kernel needs a grid barrier; block 0 writes what later kernels or
+// the host read (the step's h, bh, t_new; beta and ys).
 //
 // Each kernel redoes the torch expression op by op, in the same order and
 // with the same roundings (built with --fmad=false, IEEE division and
@@ -48,9 +47,27 @@
 // What bounds them: memory.  Each is one pass over a few state vectors
 // (S1 reads 3-4 and writes 3; S2 reads 2-3, writes 1; S3 reads up to m + 3,
 // writes up to 3; S4 reads 4, writes 3) with a handful of operations an
-// entry, and the scalar chains are O(m^2) operations a block.  One thread
-// per state entry, 256 to a block; on the solver's state (10^5-10^6
-// entries) a kernel's floor is its launch, not its bytes.
+// entry.  S1 and S4 take one entry a thread, 256 threads to a block.
+//
+// S2 and S3 (the Newton update: 10 and 4 launches a Newton iteration at
+// m = 3) are laid out for Hopper's loads:
+//   * each thread takes VEC consecutive entries of every vector, 4 in f32
+//     and 2 in f64, read and written as one 16-byte access each (a tail of
+//     n mod VEC entries entry by entry in the same kernel); the wrapper
+//     picks VEC = 1, the same kernels, for a pointer that is not 16-byte
+//     aligned or an n below VEC (kernels.vec_width); 128 threads to a
+//     block, so the mega path's 98,432 entries spread over 193 blocks;
+//   * S2's mode and S3's Krylov dimension m are template parameters: one
+//     instantiation per mode and per m = 1..kMaxM, every loop of the last
+//     column's chain (the Givens rotations of all m columns and the
+//     back-substitution) unrolled, so g, R, cs, sn, hc and ys live in
+//     registers (ptxas: no stack frame, no spill);
+//   * the last column issues all of a thread's loads first (the
+//     iteration's dot products, then its entries of the m basis vectors,
+//     y, and with the norms ewt and y_pred), and every thread then runs
+//     the chain itself from the dot products: it is warp-uniform, so SIMT
+//     issues it once a warp, with no shared memory and no block barrier,
+//     and the vectors' latency overlaps it.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError(); the caller allocates every buffer.  Each kernel adds
@@ -72,7 +89,6 @@ constexpr int kMaxDots = 1 + kMaxM * (kMaxM + 5) / 2;
 constexpr int kH = 0, kBH = 1, kTNew = 2, kDNorm = 3, kBeta = 4, kYs = 5;
 
 enum AxpyMode { kResidual = 0, kMatvec = 1, kGramSchmidt = 2 };
-enum ColumnMode { kFirst = 0, kColumn = 1, kLast = 2 };
 enum FinishMode { kNewton = 0, kStep = 1 };
 
 __device__ __forceinline__ float fmin_(float a, float b) {
@@ -214,6 +230,54 @@ __global__ void bdf_begin_kernel(BeginArgs<T> a) {
 }
 
 // ---------------------------------------------------------------------------
+// S2 and S3: VEC entries a thread
+// ---------------------------------------------------------------------------
+
+constexpr int kVecThreads = 128;
+
+// the wide form's entries a thread: one 16-byte access
+template <typename T>
+constexpr int kWide = 16 / static_cast<int>(sizeof(T));
+
+// a thread's VEC consecutive entries, moved as one access
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+// entries [i0, i0 + VEC) of p: one access where all lie below n, else
+// entry by entry (the tail; what lies beyond n reads as 0 and is not
+// stored)
+template <typename T, int VEC>
+__device__ __forceinline__ void load(const T* p, long long i0, long long n,
+                                     T (&r)[VEC]) {
+  if (i0 + VEC <= n) {
+    const Pack<T, VEC> q = *reinterpret_cast<const Pack<T, VEC>*>(p + i0);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) r[e] = q.v[e];
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) r[e] = i0 + e < n ? p[i0 + e] : T(0);
+  }
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* p, long long i0, long long n,
+                                      const T (&r)[VEC]) {
+  if (i0 + VEC <= n) {
+    Pack<T, VEC> q;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) q.v[e] = r[e];
+    *reinterpret_cast<Pack<T, VEC>*>(p + i0) = q;
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (i0 + e < n) p[i0 + e] = r[e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // S2 krylov_axpy (the vector updates of newton_iter and _gmres)
 // ---------------------------------------------------------------------------
 
@@ -223,67 +287,116 @@ struct AxpyArgs {
   T* out;  // may be y (the Gram-Schmidt update of w in place)
   unsigned long long* count;
   long long n;
-  int mode;
 };
 
-template <typename T>
-__global__ void krylov_axpy_kernel(AxpyArgs<T> a) {
-  const long long i = index();
-  if (i == 0) atomicAdd(a.count, 1ULL);
-  if (i >= a.n) return;
-  const T k = *a.k, x = a.x[i], y = a.y[i];
-  T out;
-  if (a.mode == kResidual) {
-    out = -((x - k * y) - a.z[i]);  // -(y - bh f(y) - c0)
-  } else if (a.mode == kMatvec) {
-    out = x - k * y;                // v - bh J v
-  } else {
-    out = (-k) * x + y;             // -h_ij v_i + w
+template <typename T, int MODE, int VEC>
+__global__ void __launch_bounds__(kVecThreads)
+    krylov_axpy_kernel(AxpyArgs<T> a) {
+  const long long t = index();
+  if (t == 0) atomicAdd(a.count, 1ULL);
+  const long long i0 = t * VEC;
+  if (i0 >= a.n) return;
+  T x[VEC], y[VEC], z[VEC], out[VEC];
+  load(a.x, i0, a.n, x);
+  load(a.y, i0, a.n, y);
+  if (MODE == kResidual) load(a.z, i0, a.n, z);
+  const T k = *a.k;
+  // each entry read before it is written: out may be y
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    if (MODE == kResidual) {
+      out[e] = -((x[e] - k * y[e]) - z[e]);  // -(y - bh f(y) - c0)
+    } else if (MODE == kMatvec) {
+      out[e] = x[e] - k * y[e];              // v - bh J v
+    } else {
+      out[e] = (-k) * x[e] + y[e];           // -h_ij v_i + w
+    }
   }
-  a.out[i] = out;
+  store(a.out, i0, a.n, out);
 }
 
 // ---------------------------------------------------------------------------
 // S3 krylov_column (_gmres's scalar chains and the vector op each guards)
 // ---------------------------------------------------------------------------
 
+// FIRST and COLUMN: v_out = w / safe
 template <typename T>
-struct ColumnArgs {
-  const T* dots[kMaxDots];
-  const T* vs[kMaxM];
-  const T* w;
+struct ScaleArgs {
+  const T *w, *wn, *w0;  // w0 null: FIRST (wn is b.b)
   T* v_out;
-  const T *y, *ewt, *y_pred;
-  T *y_out, *sq_dy, *sq_err, *scal;
   unsigned long long* count;
   double tol;
   long long n;
-  int mode, j, m;
 };
 
-// |w| after Gram-Schmidt in column j, 0 when it is below tol x |A v_j|
-// (a breakdown)
-template <typename T>
-__device__ __forceinline__ T column_norm(const ColumnArgs<T>& a, int j) {
-  const int off = 1 + j * (j + 5) / 2;
-  const T w0 = sqrt_(*a.dots[off]);
-  const T wn = sqrt_(*a.dots[off + j + 2]);
-  return wn > T(a.tol) * w0 ? wn : T(0);
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kVecThreads)
+    krylov_column_scale_kernel(ScaleArgs<T> a) {
+  const long long t = index();
+  if (t == 0) atomicAdd(a.count, 1ULL);
+  const long long i0 = t * VEC;
+  if (i0 >= a.n) return;
+  // the dot products and w in one round trip
+  const T dn = *a.wn;
+  const T d0 = a.w0 == nullptr ? T(0) : *a.w0;
+  T w[VEC];
+  load(a.w, i0, a.n, w);
+  T norm;
+  if (a.w0 == nullptr) {
+    norm = sqrt_(dn);  // beta
+  } else {
+    // |w| after Gram-Schmidt, 0 when it is below tol x |A v_j| (a
+    // breakdown)
+    const T w0 = sqrt_(d0);
+    const T wn = sqrt_(dn);
+    norm = wn > T(a.tol) * w0 ? wn : T(0);
+  }
+  const T safe = norm > T(0) ? norm : T(1);
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) w[e] = w[e] / safe;
+  store(a.v_out, i0, a.n, w);
 }
 
-// the Givens rotations of every column and the back-substitution R ys = g:
-// beta and ys into out[0], out[1..m]
+// LAST: the least-squares solve of all m columns, y + dy and the norms'
+// terms
 template <typename T>
-__device__ void least_squares(const ColumnArgs<T>& a, T* out) {
-  T g[kMaxM + 1], R[kMaxM][kMaxM], cs[kMaxM], sn[kMaxM], hc[kMaxM];
-  const int m = a.m;
-  const T beta = sqrt_(*a.dots[0]);
+struct LastArgs {
+  const T* dots[kMaxDots];
+  const T* vs[kMaxM];
+  const T *y, *ewt, *y_pred;
+  T *y_out, *sq_dy, *sq_err, *scal;  // sq_dy, sq_err null: no norms
+  unsigned long long* count;
+  double tol;
+  long long n;
+};
+
+// the dot products of one Newton iteration at Krylov dimension M
+template <int M>
+constexpr int kDots = 1 + M * (M + 5) / 2;
+
+// the Givens rotations of every column and the back-substitution R ys = g
+// from the dot products d, unrolled for M columns: every index is a
+// constant, so every array is registers
+template <typename T, int M>
+__device__ __forceinline__ void least_squares(const T (&d)[kDots<M>],
+                                              double tol, T& beta,
+                                              T (&ys)[M]) {
+  T g[M + 1], R[M][M], cs[M], sn[M];
+  beta = sqrt_(d[0]);
   g[0] = beta;
-  for (int k = 1; k <= m; ++k) g[k] = T(0);
-  for (int j = 0; j < m; ++j) {
+#pragma unroll
+  for (int k = 1; k <= M; ++k) g[k] = T(0);
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
     const int off = 1 + j * (j + 5) / 2;
-    const T wn = column_norm(a, j);
-    for (int i = 0; i <= j; ++i) hc[i] = *a.dots[off + 1 + i];
+    // |w| after Gram-Schmidt in column j, 0 below tol x |A v_j|
+    const T w0 = sqrt_(d[off]);
+    const T wraw = sqrt_(d[off + j + 2]);
+    const T wn = wraw > T(tol) * w0 ? wraw : T(0);
+    T hc[M];
+#pragma unroll
+    for (int i = 0; i <= j; ++i) hc[i] = d[off + 1 + i];
+#pragma unroll
     for (int i = 0; i < j; ++i) {  // the previous rotations
       const T tmp = cs[i] * hc[i] + sn[i] * hc[i + 1];
       hc[i + 1] = (-sn[i]) * hc[i] + cs[i] * hc[i + 1];
@@ -298,54 +411,71 @@ __device__ void least_squares(const ColumnArgs<T>& a, T* out) {
     hc[j] = c * hc[j] + s * wn;
     g[j + 1] = (-s) * g[j];
     g[j] = c * g[j];
+#pragma unroll
     for (int i = 0; i <= j; ++i) R[j][i] = hc[i];
   }
-  T ys[kMaxM];
-  for (int j = m - 1; j >= 0; --j) {
+#pragma unroll
+  for (int j = M - 1; j >= 0; --j) {
     T acc = g[j];
-    for (int k = j + 1; k < m; ++k) acc = acc - R[k][j] * ys[k];
+#pragma unroll
+    for (int k = j + 1; k < M; ++k) acc = acc - R[k][j] * ys[k];
     const T rjj = R[j][j];
     ys[j] = abs_(rjj) > T(0) ? acc / rjj : T(0);
   }
-  out[0] = beta;
-  for (int j = 0; j < m; ++j) out[1 + j] = ys[j];
 }
 
-template <typename T>
-__global__ void krylov_column_kernel(ColumnArgs<T> a) {
-  const long long i = index();
-  if (i == 0) atomicAdd(a.count, 1ULL);
-  if (a.mode == kFirst || a.mode == kColumn) {
-    T norm;
-    if (a.mode == kFirst) {
-      norm = sqrt_(*a.dots[0]);  // beta
-    } else {
-      norm = column_norm(a, a.j);
-    }
-    const T safe = norm > T(0) ? norm : T(1);
-    if (i < a.n) a.v_out[i] = a.w[i] / safe;
-    return;
+template <typename T, int M, int VEC>
+__global__ void __launch_bounds__(kVecThreads)
+    krylov_column_last_kernel(LastArgs<T> a) {
+  const long long t = index();
+  if (t == 0) atomicAdd(a.count, 1ULL);
+  const long long i0 = t * VEC;
+  if (i0 >= a.n) return;  // not thread 0: n >= 1 (column_last)
+  const bool norms = a.sq_dy != nullptr;
+  // every load first, the chain's dot products ahead of the vectors: one
+  // round trip for all, its latency overlapping the chain below (a load
+  // left beside its use in the chain would wait a round trip each, the
+  // square root's and division's slow-path calls keeping the scheduler
+  // from hoisting it)
+  T d[kDots<M>];
+#pragma unroll
+  for (int k = 0; k < kDots<M>; ++k) d[k] = *a.dots[k];
+  T v[M][VEC], y[VEC], e[VEC], p[VEC];
+#pragma unroll
+  for (int j = 0; j < M; ++j) load(a.vs[j], i0, a.n, v[j]);
+  load(a.y, i0, a.n, y);
+  if (norms) {
+    load(a.ewt, i0, a.n, e);
+    load(a.y_pred, i0, a.n, p);
   }
-  __shared__ T lsq[kMaxM + 1];
-  if (threadIdx.x == 0) {
-    least_squares(a, lsq);
-    if (blockIdx.x == 0) {
-      for (int k = 0; k <= a.m; ++k) a.scal[kBeta + k] = lsq[k];
-    }
+  T beta, ys[M];
+  least_squares<T, M>(d, a.tol, beta, ys);
+  if (t == 0) {
+    a.scal[kBeta] = beta;
+#pragma unroll
+    for (int k = 0; k < M; ++k) a.scal[kYs + k] = ys[k];
   }
-  __syncthreads();
-  if (i >= a.n) return;
-  T x = a.vs[0][i] * lsq[1];
-  for (int j = 1; j < a.m; ++j) x = lsq[1 + j] * a.vs[j][i] + x;
-  const T dy = lsq[0] > T(0) ? x : T(0);
-  const T yn = a.y[i] + dy;
-  a.y_out[i] = yn;
-  if (a.sq_dy != nullptr) {
-    const T e = a.ewt[i];
-    const T p = dy * e;
-    a.sq_dy[i] = p * p;
-    const T q = (yn - a.y_pred[i]) * e;
-    a.sq_err[i] = q * q;
+  T dy[VEC], yn[VEC];
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) {
+    T x = v[0][q] * ys[0];
+#pragma unroll
+    for (int j = 1; j < M; ++j) x = ys[j] * v[j][q] + x;
+    dy[q] = beta > T(0) ? x : T(0);
+    yn[q] = y[q] + dy[q];
+  }
+  store(a.y_out, i0, a.n, yn);
+  if (norms) {
+    T sq_dy[VEC], sq_err[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      const T pd = dy[q] * e[q];
+      sq_dy[q] = pd * pd;
+      const T qe = (yn[q] - p[q]) * e[q];
+      sq_err[q] = qe * qe;
+    }
+    store(a.sq_dy, i0, a.n, sq_dy);
+    store(a.sq_err, i0, a.n, sq_err);
   }
 }
 
@@ -465,51 +595,135 @@ int begin(void* const* p, const double* d, const long long* iv,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the grid of S2 and S3: one thread per VEC entries
+unsigned vec_blocks(long long n, int vec) {
+  const long long threads = (n + vec - 1) / vec;
+  const long long blocks = (threads + kVecThreads - 1) / kVecThreads;
+  return static_cast<unsigned>(blocks > 0 ? blocks : 1);
+}
+
+// null or 16-byte aligned: what the wide form's accesses need
+bool aligned(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T, int MODE>
+void launch_axpy(const AxpyArgs<T>& a, int vec, cudaStream_t s) {
+  if (vec == 1) {
+    krylov_axpy_kernel<T, MODE, 1>
+        <<<vec_blocks(a.n, 1), kVecThreads, 0, s>>>(a);
+  } else {
+    krylov_axpy_kernel<T, MODE, kWide<T>>
+        <<<vec_blocks(a.n, kWide<T>), kVecThreads, 0, s>>>(a);
+  }
+}
+
 template <typename T>
-int axpy(int mode, void* const* p, long long n, cudaStream_t stream) {
+int axpy(int mode, int vec, void* x, void* y, void* z, void* k, void* out,
+         void* count, long long n, cudaStream_t s) {
+  if ((vec != 1 && vec != kWide<T>) ||
+      (vec != 1 && !(aligned(x) && aligned(y) && aligned(z) &&
+                     aligned(out)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   AxpyArgs<T> a;
-  a.x = static_cast<const T*>(p[0]);
-  a.y = static_cast<const T*>(p[1]);
-  a.z = static_cast<const T*>(p[2]);
-  a.k = static_cast<const T*>(p[3]);
-  a.out = static_cast<T*>(p[4]);
-  a.count = static_cast<unsigned long long*>(p[5]);
+  a.x = static_cast<const T*>(x);
+  a.y = static_cast<const T*>(y);
+  a.z = static_cast<const T*>(z);
+  a.k = static_cast<const T*>(k);
+  a.out = static_cast<T*>(out);
+  a.count = static_cast<unsigned long long*>(count);
   a.n = n;
-  a.mode = mode;
-  krylov_axpy_kernel<T><<<blocks_for(n), kThreads, 0, stream>>>(a);
+  switch (mode) {
+    case kResidual:
+      launch_axpy<T, kResidual>(a, vec, s);
+      break;
+    case kMatvec:
+      launch_axpy<T, kMatvec>(a, vec, s);
+      break;
+    case kGramSchmidt:
+      launch_axpy<T, kGramSchmidt>(a, vec, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int column(int mode, int j, int m, void* const* dots, void* const* p,
-           double tol, long long n, cudaStream_t stream) {
-  if (m < 1 || m > kMaxM || j < 0 || j >= m) {
+int column_scale(int vec, void* w, void* v_out, void* wn, void* w0,
+                 double tol, void* count, long long n, cudaStream_t s) {
+  if ((vec != 1 && vec != kWide<T>) ||
+      (vec != 1 && !(aligned(w) && aligned(v_out)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ColumnArgs<T> a;
-  const int nd = mode == kFirst ? 1 : 1 + (j + 1) * (j + 6) / 2;
+  ScaleArgs<T> a;
+  a.w = static_cast<const T*>(w);
+  a.v_out = static_cast<T*>(v_out);
+  a.wn = static_cast<const T*>(wn);
+  a.w0 = static_cast<const T*>(w0);
+  a.count = static_cast<unsigned long long*>(count);
+  a.tol = tol;
+  a.n = n;
+  if (vec == 1) {
+    krylov_column_scale_kernel<T, 1>
+        <<<vec_blocks(n, 1), kVecThreads, 0, s>>>(a);
+  } else {
+    krylov_column_scale_kernel<T, kWide<T>>
+        <<<vec_blocks(n, kWide<T>), kVecThreads, 0, s>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int M>
+void launch_last(const LastArgs<T>& a, int vec, cudaStream_t s) {
+  if (vec == 1) {
+    krylov_column_last_kernel<T, M, 1>
+        <<<vec_blocks(a.n, 1), kVecThreads, 0, s>>>(a);
+  } else {
+    krylov_column_last_kernel<T, M, kWide<T>>
+        <<<vec_blocks(a.n, kWide<T>), kVecThreads, 0, s>>>(a);
+  }
+}
+
+template <typename T>
+int column_last(int m, int vec, void* const* dots, void* const* p,
+                double tol, long long n, cudaStream_t s) {
+  if (m < 1 || m > kMaxM || n < 1 || (vec != 1 && vec != kWide<T>)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LastArgs<T> a;
+  const int nd = 1 + m * (m + 5) / 2;
   for (int k = 0; k < kMaxDots; ++k) {
     a.dots[k] = k < nd ? static_cast<const T*>(dots[k]) : nullptr;
   }
+  bool ok = true;
   for (int k = 0; k < kMaxM; ++k) {
     a.vs[k] = k < m ? static_cast<const T*>(p[k]) : nullptr;
+    ok = ok && aligned(a.vs[k]);
   }
-  a.w = static_cast<const T*>(p[kMaxM]);
-  a.v_out = static_cast<T*>(p[kMaxM + 1]);
-  a.y = static_cast<const T*>(p[kMaxM + 2]);
-  a.ewt = static_cast<const T*>(p[kMaxM + 3]);
-  a.y_pred = static_cast<const T*>(p[kMaxM + 4]);
-  a.y_out = static_cast<T*>(p[kMaxM + 5]);
-  a.sq_dy = static_cast<T*>(p[kMaxM + 6]);
-  a.sq_err = static_cast<T*>(p[kMaxM + 7]);
-  a.scal = static_cast<T*>(p[kMaxM + 8]);
-  a.count = static_cast<unsigned long long*>(p[kMaxM + 9]);
+  for (int k = kMaxM; k < kMaxM + 6; ++k) ok = ok && aligned(p[k]);
+  if (vec != 1 && !ok) return static_cast<int>(cudaErrorInvalidValue);
+  a.y = static_cast<const T*>(p[kMaxM]);
+  a.ewt = static_cast<const T*>(p[kMaxM + 1]);
+  a.y_pred = static_cast<const T*>(p[kMaxM + 2]);
+  a.y_out = static_cast<T*>(p[kMaxM + 3]);
+  a.sq_dy = static_cast<T*>(p[kMaxM + 4]);
+  a.sq_err = static_cast<T*>(p[kMaxM + 5]);
+  a.scal = static_cast<T*>(p[kMaxM + 6]);
+  a.count = static_cast<unsigned long long*>(p[kMaxM + 7]);
   a.tol = tol;
   a.n = n;
-  a.mode = mode;
-  a.j = j;
-  a.m = m;
-  krylov_column_kernel<T><<<blocks_for(n), kThreads, 0, stream>>>(a);
+  switch (m) {
+    case 1: launch_last<T, 1>(a, vec, s); break;
+    case 2: launch_last<T, 2>(a, vec, s); break;
+    case 3: launch_last<T, 3>(a, vec, s); break;
+    case 4: launch_last<T, 4>(a, vec, s); break;
+    case 5: launch_last<T, 5>(a, vec, s); break;
+    case 6: launch_last<T, 6>(a, vec, s); break;
+    case 7: launch_last<T, 7>(a, vec, s); break;
+    default: launch_last<T, 8>(a, vec, s); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -575,18 +789,36 @@ int shud_bdf_begin(int f64, void* const* ptrs, const double* params,
              : begin<float>(ptrs, params, iparams, s);
 }
 
-int shud_krylov_axpy(int f64, int mode, void* const* ptrs, long long n,
+// *vec*: the entries a thread, 1 or 16 / sizeof(T) (every pointer then
+// 16-byte aligned, else cudaErrorInvalidValue).  z is null but for the
+// residual.
+int shud_krylov_axpy(int f64, int mode, int vec, void* x, void* y, void* z,
+                     void* k, void* out, void* count, long long n,
                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return f64 ? axpy<double>(mode, ptrs, n, s) : axpy<float>(mode, ptrs, n, s);
+  return f64 ? axpy<double>(mode, vec, x, y, z, k, out, count, n, s)
+             : axpy<float>(mode, vec, x, y, z, k, out, count, n, s);
 }
 
-int shud_krylov_column(int f64, int mode, int j, int m, void* const* dots,
-                       void* const* ptrs, double tol, long long n,
-                       void* stream) {
+// FIRST (w0 null: v_out = w / sqrt(wn)) and COLUMN (v_out = w / |w|, wn
+// and w0 the dot products of w after and before Gram-Schmidt)
+int shud_krylov_column_scale(int f64, int vec, void* w, void* v_out,
+                             void* wn, void* w0, double tol, void* count,
+                             long long n, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return f64 ? column<double>(mode, j, m, dots, ptrs, tol, n, s)
-             : column<float>(mode, j, m, dots, ptrs, tol, n, s);
+  return f64 ? column_scale<double>(vec, w, v_out, wn, w0, tol, count, n, s)
+             : column_scale<float>(vec, w, v_out, wn, w0, tol, count, n, s);
+}
+
+// LAST: *dots* the 1 + m (m + 5) / 2 dot products of the iteration;
+// *ptrs* vs[0..kMaxM), y, ewt, y_pred, y_out, sq_dy, sq_err (both null:
+// no norms), scal, count
+int shud_krylov_column_last(int f64, int m, int vec, void* const* dots,
+                            void* const* ptrs, double tol, long long n,
+                            void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return f64 ? column_last<double>(m, vec, dots, ptrs, tol, n, s)
+             : column_last<float>(m, vec, dots, ptrs, tol, n, s);
 }
 
 int shud_bdf_finish(int f64, int mode, void* const* ptrs,

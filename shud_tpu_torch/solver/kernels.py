@@ -23,6 +23,11 @@ with the same roundings (``csrc/bdf.cu`` lists the traps):
   iteration?) and the step end (error test, controller, counters, the
   selects of y, y_prev and y_prev2, and the step loop's ``active``).
 
+S2 and S3 take 16 bytes of entries a thread (4 in float32, 2 in
+float64), or one entry a thread where an address is not 16-byte aligned
+or the state is shorter (``vec_width``); ``form_counts`` counts each
+launch's form.
+
 Kept as library calls, the reductions sum in cuBLAS's and PyTorch's own
 order, so a trajectory on the kernels stays bitwise the torch pieces'
 (``solver_kernel=False``), as the float32 gates at the storm's
@@ -58,10 +63,17 @@ _counts = LaunchCounts(("bdf_begin", "krylov_axpy", "krylov_column",
 # replays
 launch_counts = _counts.host
 device_launch_counts = _counts.device
+# the form each launch of S2 and S3 by its wrapper took (vec_width):
+# "wide", 16 bytes of entries a thread, or "one", one entry a thread
+form_counts = {k: {"wide": 0, "one": 0}
+               for k in ("krylov_axpy", "krylov_column")}
 
 
 def reset_launch_counts() -> None:
     _counts.reset()
+    for forms in form_counts.values():
+        for k in forms:
+            forms[k] = 0
 
 
 # the largest Krylov dimension the kernels take (csrc/bdf.cu kMaxM)
@@ -368,14 +380,31 @@ def _ptrs(*items) -> "ctypes.Array":
         for t in items])
 
 
-def _check(what: str, n: int, dtype, *tensors) -> None:
-    """Each state-sized tensor of *tensors* contiguous, *dtype*, [n]."""
+def _checked(what: str, n: int, dtype, *tensors) -> list:
+    """The data addresses of *tensors* (0 for None), each checked:
+    contiguous, *dtype*, [n]."""
+    out = []
     for t in tensors:
-        if t is not None and (t.dtype != dtype or t.shape != (n,)
-                              or not t.is_contiguous()):
+        if t is None:
+            out.append(0)
+            continue
+        if t.dtype != dtype or t.shape != (n,) or not t.is_contiguous():
             raise ValueError(f"{what}: a {t.dtype} tensor of shape "
                              f"{tuple(t.shape)}, want contiguous {dtype} "
                              f"[{n}]")
+        out.append(t.data_ptr())
+    return out
+
+
+def vec_width(dtype, n: int, addresses) -> int:
+    """The entries a thread of S2 and S3 takes (``csrc/bdf.cu``): 16
+    bytes of them, 4 in float32 and 2 in float64, when *n* holds that many
+    and every address is 16-byte aligned (0, a vector not passed, counts
+    as aligned); else 1, the same kernels one entry a thread."""
+    wide = 4 if dtype == torch.float32 else 2
+    if n < wide or any(a % 16 for a in addresses):
+        return 1
+    return wide
 
 
 def _raise_if(err: int, name: str) -> None:
@@ -383,8 +412,15 @@ def _raise_if(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+def _stream(index: int) -> int:
+    """torch's current stream on CUDA device *index*, read on every call
+    (a graph's capture runs on a stream of its own)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _counted(name: str, vec: int) -> None:
+    launch_counts[name] += 1
+    form_counts[name]["wide" if vec > 1 else "one"] += 1
 
 
 def bdf_begin(s: Scratch, c, tout, cfg, fy0=None) -> None:
@@ -395,14 +431,15 @@ def bdf_begin(s: Scratch, c, tout, cfg, fy0=None) -> None:
     if (fy0 is None) != history(cfg):
         raise ValueError("bdf_begin: fy0 is needed exactly without the "
                          "history predictor")
-    _check("bdf_begin", s.n, s.dtype, c.y, c.y_prev, c.y_prev2, fy0)
+    _checked("bdf_begin", s.n, s.dtype, c.y, c.y_prev, c.y_prev2, fy0)
+    dev = s.device.index
     ptrs = _ptrs(c.y, c.y_prev, c.y_prev2, fy0, c.t, c.h, c.h_prev,
                  c.h_prev2, tout, c.order, s.ewt, s.y_pred, s.c0, s.scal,
-                 s.it, _counts.pointer("bdf_begin", s.device))
+                 s.it, _counts.pointer("bdf_begin", dev))
     params = (ctypes.c_double * 4)(cfg.rtol, cfg.atol, cfg.h_max, cfg.h_min)
     iparams = (ctypes.c_longlong * 3)(s.n, cfg.max_order, history(cfg))
     _raise_if(load_library().shud_bdf_begin(
-        s.dtype == torch.float64, ptrs, params, iparams, _stream(s.device)),
+        s.dtype == torch.float64, ptrs, params, iparams, _stream(dev)),
         "bdf_begin")
     launch_counts["bdf_begin"] += 1
 
@@ -412,13 +449,15 @@ def krylov_axpy(mode: int, k, x, y, out, z=None) -> None:
     ``-k·x + y`` (GRAM_SCHMIDT, *out* may be *y*), *k* a 0-d tensor."""
     if on_cpu(x, y, out, k, what="solver kernels"):
         return krylov_axpy_plain(mode, k, x, y, out, z)
-    n = out.numel()
-    _check("krylov_axpy", n, out.dtype, x, y, out, z)
-    ptrs = _ptrs(x, y, z, k, out, _counts.pointer("krylov_axpy", out.device))
+    n, dtype = out.numel(), out.dtype
+    px, py, pz, po = _checked("krylov_axpy", n, dtype, x, y, z, out)
+    vec = vec_width(dtype, n, (px, py, pz, po))
+    dev = out.get_device()
     _raise_if(load_library().shud_krylov_axpy(
-        out.dtype == torch.float64, mode, ptrs, n, _stream(out.device)),
+        dtype == torch.float64, mode, vec, px, py, pz, k.data_ptr(), po,
+        _counts.pointer("krylov_axpy", dev), n, _stream(dev)),
         "krylov_axpy")
-    launch_counts["krylov_axpy"] += 1
+    _counted("krylov_axpy", vec)
 
 
 def krylov_column(s: Scratch, mode: int, j: int, dots, y=None, y_out=None,
@@ -431,18 +470,37 @@ def krylov_column(s: Scratch, mode: int, j: int, dots, y=None, y_out=None,
     products so far (``least_squares``)."""
     if on_cpu(s.w, *dots, what="solver kernels"):
         return krylov_column_plain(s, mode, j, dots, y, y_out, norms)
-    if mode == LAST:
-        _check("krylov_column", s.n, s.dtype, y, y_out)
-    out = s.vs[0] if mode == FIRST else (
-        s.vs[j + 1] if mode == COLUMN else None)
+    n, dtype, dev = s.n, s.dtype, s.device.index
+    f64 = dtype == torch.float64
+    count = _counts.pointer("krylov_column", dev)
+    if mode != LAST:
+        if mode == FIRST:
+            out, wn, w0 = s.vs[0], dots[0], None
+        else:
+            off = 1 + j * (j + 5) // 2
+            out, wn, w0 = s.vs[j + 1], dots[off + j + 2], dots[off]
+        pw, po = _checked("krylov_column", n, dtype, s.w, out)
+        vec = vec_width(dtype, n, (pw, po))
+        _raise_if(load_library().shud_krylov_column_scale(
+            f64, vec, pw, po, wn.data_ptr(),
+            None if w0 is None else w0.data_ptr(), s.tol, count, n,
+            _stream(dev)), "krylov_column")
+        _counted("krylov_column", vec)
+        return
+    nd = 1 + s.m * (s.m + 5) // 2
+    if len(dots) < nd:
+        raise ValueError(f"krylov_column: {len(dots)} dot products, the "
+                         f"last column of m = {s.m} reads {nd}")
     sq = s.sq if norms else (None, None)
-    ptrs = _ptrs(*s.vs, *[None] * (MAX_KRYLOV - s.m), s.w, out, y, s.ewt,
-                 s.y_pred, y_out, *sq, s.scal,
-                 _counts.pointer("krylov_column", s.device))
-    _raise_if(load_library().shud_krylov_column(
-        s.dtype == torch.float64, mode, j, s.m, _ptrs(*dots), ptrs, s.tol,
-        s.n, _stream(s.device)), "krylov_column")
-    launch_counts["krylov_column"] += 1
+    p = _checked("krylov_column", n, dtype, *s.vs, y, s.ewt, s.y_pred,
+                 y_out, *sq)
+    vec = vec_width(dtype, n, p)
+    ptrs = _ptrs(*p[:s.m], *[None] * (MAX_KRYLOV - s.m), *p[s.m:], s.scal,
+                 count)
+    _raise_if(load_library().shud_krylov_column_last(
+        f64, s.m, vec, _ptrs(*dots[:nd]), ptrs, s.tol, n, _stream(dev)),
+        "krylov_column")
+    _counted("krylov_column", vec)
 
 
 def bdf_finish(s: Scratch, mode: int, cfg, total, c=None, tout=None,
@@ -458,12 +516,13 @@ def bdf_finish(s: Scratch, mode: int, cfg, total, c=None, tout=None,
                                 active)
     step = mode == STEP
     if step:
-        _check("bdf_finish", s.n, s.dtype, c.y, c.y_prev, c.y_prev2)
+        _checked("bdf_finish", s.n, s.dtype, c.y, c.y_prev, c.y_prev2)
     cs = ((c.y, c.y_prev, c.y_prev2, s.y, c.t, c.h, c.h_prev, c.h_prev2,
            c.order, c.nfe, c.nsteps, c.nfails, c.nnifails, c.nni)
           if step else (None,) * 14)
+    dev = s.device.index
     ptrs = _ptrs(total, s.scal, s.it, s.more, s.accept, *cs, tout, nsteps0,
-                 active, _counts.pointer("bdf_finish", s.device))
+                 active, _counts.pointer("bdf_finish", dev))
     # sum / n divides by a host integer: the product with its reciprocal,
     # which PyTorch computes on the host in the state's type
     dt = np.float64 if s.dtype == torch.float64 else np.float32
@@ -474,7 +533,7 @@ def bdf_finish(s: Scratch, mode: int, cfg, total, c=None, tout=None,
                                       cfg.krylov_m, history(cfg))
     _raise_if(load_library().shud_bdf_finish(
         s.dtype == torch.float64, mode, ptrs, params, iparams,
-        _stream(s.device)), "bdf_finish")
+        _stream(dev)), "bdf_finish")
     launch_counts["bdf_finish"] += 1
 
 

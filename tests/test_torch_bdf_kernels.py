@@ -7,14 +7,18 @@ kernels, which the CPU runs and each kernel is held against on the card.
   made with numpy from a seed: the step's plan and first Newton
   iteration (orders 1-3, the history predictor on and off), the
   residual, matvec and Gram-Schmidt updates, the Newton update through
-  ``_gmres`` (m = 3 and 5, a zero beta, a breakdown column on an
-  invariant Krylov space), the Newton tail and the step end.
+  ``_gmres`` (every m = 1..8 the last column's kernel is instantiated
+  for, a zero beta, a breakdown column on an invariant Krylov space), the
+  Newton tail and the step end.
 * The whole route bitwise the torch pieces, with equal steps, NFE and
   Newton iterations: a toy stiff problem (orders 2 and 3), a 12x8 storm
   window on the mega path's plain hook, one -g window through
   ``SplitGraph``'s pieces run eagerly, and the fixed-step truth.
-* Against JAX's ``solve_to`` in float64: within 1e-12 scaled, with equal
-  steps and NFE.
+* Against JAX in float64: ``solve_to`` within 1e-12 scaled, with equal
+  steps and NFE; the Newton update against ``_gmres`` for m = 1..8 within
+  1e-12 scaled.
+* The wide or one-entry form of S2 and S3 (``vec_width``) on fresh
+  allocations and views.
 
 The kernels themselves run on the card only (tests/test_torch_kernels.py).
 """
@@ -133,16 +137,69 @@ def _update(dtype, m, diag, y, fy, c0, k):
     return out, ref, s
 
 
+# every Krylov dimension the last column's kernel is instantiated for
+KRYLOV_MS = tuple(range(1, K.MAX_KRYLOV + 1))
+
+
+def _update_inputs(rng, dtype):
+    """y, c0, the diagonal of J and fy of a Newton update."""
+    y, c0 = _vec(rng, dtype, 0, 2), _vec(rng, dtype, 0, 2)
+    return y, c0, _vec(rng, dtype, -3.0, -0.5), _vec(rng, dtype, scale=1e-2)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m", (3, 5))
+@pytest.mark.parametrize("m", KRYLOV_MS)
 def test_newton_update_plain_matches_gmres(dtype, m):
     rng = np.random.default_rng(m)
-    y, c0 = _vec(rng, dtype, 0, 2), _vec(rng, dtype, 0, 2)
-    out, ref, s = _update(dtype, m, _vec(rng, dtype, -3.0, -0.5), y,
-                          _vec(rng, dtype, scale=1e-2), c0,
+    y, c0, diag, fy = _update_inputs(rng, dtype)
+    out, ref, s = _update(dtype, m, diag, y, fy, c0,
                           torch.tensor(0.37, dtype=dtype))
     assert torch.equal(out, ref)
     assert float(s.beta) > 0 and bool(torch.isfinite(s.ys).all())
+
+
+@pytest.mark.parametrize("m", KRYLOV_MS)
+def test_newton_update_matches_jax_gmres(m):
+    """The port's Newton update (the plain S2 and S3 split at the kept
+    dot products) within 1e-12 scaled of ``y + shud_tpu.solver.bdf._gmres``
+    on the same numpy inputs, float64."""
+    from shud_tpu.solver import bdf as JB
+
+    rng = np.random.default_rng(100 + m)
+    y, c0, diag, fy = _update_inputs(rng, torch.float64)
+    k = 0.37
+    s = K.Scratch(y, m)
+    out = torch.empty_like(y)
+    K.newton_update(s, lambda v: diag * v, y, fy, c0,
+                    torch.tensor(k, dtype=torch.float64), out, norms=False)
+    yj, c0j, dj, fyj = (jnp.asarray(t.numpy()) for t in (y, c0, diag, fy))
+    assert yj.dtype == jnp.float64
+    dy = JB._gmres(lambda v: v - k * (dj * v), -(yj - k * fyj - c0j), m)
+    ref = np.asarray(yj + dy)
+    assert np.abs(out.numpy() - ref).max() <= 1e-12 * np.abs(ref).max()
+    dy_port = out.numpy() - y.numpy()
+    assert (np.abs(dy_port - np.asarray(dy)).max()
+            <= 1e-12 * np.abs(np.asarray(dy)).max() + 1e-15)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_vec_width(dtype):
+    """S2's and S3's form from n, the dtype and the addresses: 16 bytes of
+    entries a thread on fresh allocations, one entry a thread on a view
+    one entry in or an n below 16 bytes' worth."""
+    wide = 16 // (torch.finfo(dtype).bits // 8)
+    n = 37
+    a, b = torch.zeros(n, dtype=dtype), torch.zeros(n, dtype=dtype)
+    view = torch.zeros(n + 1, dtype=dtype)[1:]
+    short = torch.zeros(wide - 1, dtype=dtype)
+    assert K.vec_width(dtype, n, (a.data_ptr(), b.data_ptr())) == wide
+    assert K.vec_width(dtype, n, (a.data_ptr(), 0)) == wide  # z absent
+    assert K.vec_width(dtype, n, (a.data_ptr(), view.data_ptr())) == 1
+    assert K.vec_width(dtype, wide - 1, (short.data_ptr(),)) == 1
+    assert K.vec_width(dtype, wide, (a.data_ptr(),)) == wide
+    # a view whose offset keeps 16-byte alignment takes the wide form
+    aligned = torch.zeros(n + wide, dtype=dtype)[wide:]
+    assert K.vec_width(dtype, n, (aligned.data_ptr(),)) == wide
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

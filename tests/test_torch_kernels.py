@@ -530,33 +530,45 @@ def _solver_counts():
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
-@pytest.mark.parametrize("n", (32768, 131072))
+@pytest.mark.parametrize("n", (32768, 131072, 98433, 3))
 def test_solver_kernels_match_plain(n, dtype):
     """The solver's four kernels (csrc/bdf.cu) against their plain
     versions on the same inputs (tests/torch_variants.solver_kernel_cases:
-    every branch of each), bitwise; each call one device launch of its
+    every branch of each, the last column at every m = 1..8, S2 and S3 on
+    views one entry in), bitwise; each call one device launch of its
     kernel and of no other; a whole Newton update (m = 3) through them
-    bitwise its plain route, with 10 axpy and 4 column launches."""
+    bitwise its plain route, with 10 axpy and 4 column launches.  S2 and
+    S3 take 16 bytes of entries a thread (a tail where n is no multiple of
+    it), one entry a thread on the views and below 16 bytes' worth."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from torch_variants import solver_kernel_cases
 
     from shud_tpu_torch.solver import kernels as K
 
+    narrow_n = n < 16 // (torch.finfo(dtype).bits // 8)
     for case in solver_kernel_cases(n, dtype, "cuda", seed=n):
         name, label = case.name, case.label
+        K.reset_launch_counts()
         before = _solver_counts()
         got = case.run(True)
+        forms = {k: dict(v) for k, v in K.form_counts.items()}
+        hosts = dict(K.launch_counts)
         after = _solver_counts()
         want = case.run(False)
         delta = {k: after[k] - before[k] for k in after}
         expect = ({"krylov_axpy": 10, "krylov_column": 4}
                   if name == "newton_update" else {name: 1})
         assert delta == {k: expect.get(k, 0) for k in delta}, (label, delta)
+        assert hosts == delta, (label, hosts)
+        narrow = narrow_n or "offset" in label
+        for k, forms_k in forms.items():
+            runs = expect.get(k, 0)
+            assert forms_k == {"wide": 0 if narrow else runs,
+                               "one": runs if narrow else 0}, (label, forms)
         for k in want:
             assert got[k].dtype == want[k].dtype and torch.equal(
                 got[k], want[k]), (name, label, k)
-    assert K.launch_counts["bdf_begin"] > 0
 
 
 def test_solver_kernels_refuse_bad_inputs():

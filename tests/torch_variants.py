@@ -249,7 +249,9 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
     ``case.run(kernel)`` calls and returns the outputs.  S1 on orders 1-3 with the
     history predictor on and off, S2 in its three modes, S3's first
     vector, a column, a breakdown column, a zero beta and the last
-    column's solve (m = 3 and 5, with and without the norms), S4's Newton
+    column's solve (every m = 1..8; at m = 5 also with a breakdown and
+    without the norms), S2 and S3 also on views one entry into their
+    allocations (not 16-byte aligned: the one-entry form), S4's Newton
     tail above and below the tolerance and its step end accepted,
     rejected, not converged and at h_min.  "newton_update" runs S2 and S3
     through a whole Newton update (a diagonal J, m = 3).  ``vectors``: the
@@ -267,6 +269,13 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
 
     def sc(v, dt=None):
         return torch.tensor(v, dtype=dt or dtype, device=device)
+
+    def shifted(t):
+        """*t* in a view one entry into a larger allocation: not 16-byte
+        aligned, so S2 and S3 take one entry a thread."""
+        out = torch.empty(n + 1, dtype=dtype, device=device)[1:]
+        out.copy_(t)
+        return out
 
     def carry(rng, order, h=0.73, tout=20.0):
         y = vec(rng, 0.0, 2.0)
@@ -308,10 +317,12 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
                     begin_case(history, max_order, order, tout),
                     6 if history else 7, 12 if max_order < 3 else 30))
 
-    def axpy_case(mode):
+    def axpy_case(mode, offset=False):
         def prepare(kernel):
             rng = np.random.default_rng(seed + 1)
             x, y, z = vec(rng), vec(rng), vec(rng)
+            if offset:
+                x, y, z = shifted(x), shifted(y), shifted(z)
             k = sc(float(rng.uniform(0.1, 3.0)))
             out = y if mode == K.GRAM_SCHMIDT else torch.empty_like(x)
             fn = K.krylov_axpy if kernel else K.krylov_axpy_plain
@@ -325,12 +336,14 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
 
     for mode, label in ((K.RESIDUAL, "residual"), (K.MATVEC, "matvec"),
                         (K.GRAM_SCHMIDT, "gram_schmidt")):
-        cases.append(SolverCase("krylov_axpy", label, axpy_case(mode),
-                                4 if mode == K.RESIDUAL else 3,
-                                4 if mode == K.RESIDUAL else 3))
+        for offset in (False, True):
+            cases.append(SolverCase(
+                "krylov_axpy", label + (", offset" if offset else ""),
+                axpy_case(mode, offset), 4 if mode == K.RESIDUAL else 3,
+                4 if mode == K.RESIDUAL else 3))
 
     def column_case(mode, j, m, zero_beta=False, breakdown=None,
-                    norms=True):
+                    norms=True, offset=False):
         def prepare(kernel):
             rng = np.random.default_rng(seed + 2)
             s = K.Scratch(vec(rng), m)
@@ -340,6 +353,9 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
             s.ewt.copy_(vec(rng, 10.0, 1e3))
             s.y_pred.copy_(vec(rng, 0.0, 2.0))
             y = vec(rng, 0.0, 2.0)
+            if offset:
+                s.w, y = shifted(s.w), shifted(y)
+                s.vs = [shifted(v) for v in s.vs]
             dots = [0.0 if zero_beta else float(rng.uniform(0.5, 2.0)) ** 2]
             for col in range(m):
                 w0 = float(rng.uniform(1.0, 2.0))
@@ -348,7 +364,7 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
                 dots += ([w0 * w0] + list(rng.standard_normal(col + 1))
                          + [wn * wn])
             dots = [sc(d) for d in dots]
-            y_out = torch.empty_like(y)
+            y_out = shifted(y) if offset else torch.empty_like(y)
             fn = K.krylov_column if kernel else K.krylov_column_plain
 
             def outputs():
@@ -378,7 +394,17 @@ def solver_kernel_cases(n: int, dtype, device, seed: int = 0) -> list:
                    column_case(K.LAST, 4, 5, norms=False), 5 + 2, 10),
         SolverCase("krylov_column", "last, beta 0",
                    column_case(K.LAST, 2, 3, zero_beta=True), 3 + 6, last),
+        SolverCase("krylov_column", "first, offset",
+                   column_case(K.FIRST, 0, 3, offset=True), 2, 1),
+        SolverCase("krylov_column", "column 1, offset",
+                   column_case(K.COLUMN, 1, 3, offset=True), 2, 1),
+        SolverCase("krylov_column", "last, m 3, offset",
+                   column_case(K.LAST, 2, 3, offset=True), 3 + 6, last),
     ]
+    # the last column of every Krylov dimension the kernel instantiates
+    cases += [SolverCase("krylov_column", f"last, m {m}",
+                         column_case(K.LAST, m - 1, m), m + 6, 2 * m + 10)
+              for m in range(1, K.MAX_KRYLOV + 1) if m != 3]
 
     def finish_case(mode, dnorm, err, h=0.73, it=2):
         def prepare(kernel):
