@@ -22,6 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from shud_tpu_torch import trace
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 # --fmad=false: no multiply-add is fused, so each product and sum rounds
@@ -92,8 +94,13 @@ def load_library() -> ctypes.CDLL:
     """The kernels' shared library, built on first use (once per source
     hash).  Raises with nvcc's output if the build fails."""
     global _LIB
-    if _LIB is not None:
-        return _LIB
+    if _LIB is None:
+        with trace.span("shud.library.load", always=True):
+            _LIB = _load()
+    return _LIB
+
+
+def _load() -> ctypes.CDLL:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
     for src in sources():
         h.update(src.name.encode() + src.read_bytes())
@@ -119,6 +126,7 @@ def load_library() -> ctypes.CDLL:
                   "add_if": [p, p, p, pp, pp],
                   "add_while": [p, p, p, pp, pp, ctypes.POINTER(u64)],
                   "add_condition": [p, p, u64, p, pp],
+                  "add_stamp": [p, p, p, i, i, pp],
                   "instantiate": [p, pp], "launch": [p, p],
                   "exec_destroy": [p],
                   "node_types": [p, ctypes.POINTER(u64)]}
@@ -143,5 +151,4 @@ def load_library() -> ctypes.CDLL:
     lib.shud_mega_scratch_floats.restype = ctypes.c_longlong
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
                       ptxas=log)
-    _LIB = lib
     return lib

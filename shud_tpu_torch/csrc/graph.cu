@@ -14,6 +14,13 @@
 // so no host decides anything while the graph runs.  WHILE nodes need CUDA
 // 12.3 or later.
 //
+// A stamp node (stamp, one thread) reads the device's nanosecond clock
+// (%globaltimer) between two pieces and adds the time since the previous
+// stamp into one entry of an int64 buffer, whose last entry keeps the
+// reading: IntervalGraph's device time of each window's head, solve and
+// tail.  No JAX counterpart: it replaces none of JAX's kernels and is only
+// in the graph when the port's tracing is on.
+//
 // Every entry point returns a cudaError_t as int; the caller raises.
 
 #include <cuda_runtime.h>
@@ -23,6 +30,15 @@ namespace {
 __global__ void set_condition(cudaGraphConditionalHandle handle,
                               const bool* pred) {
   cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+// sums[slot] += now - sums[last]; sums[last] = now
+__global__ void stamp(long long* sums, int slot, int last) {
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  const long long t = static_cast<long long>(now);
+  sums[slot] += t - sums[last];
+  sums[last] = t;
 }
 
 int deps_of(void* dep, cudaGraphNode_t* out) {
@@ -131,6 +147,24 @@ int shud_graph_add_condition(void* graph, void* dep, unsigned long long handle,
   cudaGraphNode_t n = nullptr;
   cudaError_t err = add_setter(static_cast<cudaGraph_t>(graph), dep, handle,
                                pred, &n);
+  *node = n;
+  return static_cast<int>(err);
+}
+
+// after *dep* in *graph*: a stamp into entry *slot* of *sums*, whose entry
+// *last* holds the previous reading
+int shud_graph_add_stamp(void* graph, void* dep, long long* sums, int slot,
+                         int last, void** node) {
+  void* args[] = {&sums, &slot, &last};
+  cudaKernelNodeParams kp = {};
+  kp.func = reinterpret_cast<void*>(&stamp);
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.kernelParams = args;
+  cudaGraphNode_t d, n = nullptr;
+  const int nd = deps_of(dep, &d);
+  cudaError_t err = cudaGraphAddKernelNode(
+      &n, static_cast<cudaGraph_t>(graph), nd ? &d : nullptr, nd, &kp);
   *node = n;
   return static_cast<int>(err);
 }

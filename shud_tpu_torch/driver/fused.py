@@ -33,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from shud_tpu_torch import trace
 from shud_tpu_torch.core import mega as mega_mod
 from shud_tpu_torch.core import physics as ph
 from shud_tpu_torch.core.cryo import (
@@ -51,7 +52,7 @@ from shud_tpu_torch.solver.bdf import (
     BDFState, SolverConfig, bdf_init, functions, np_dtype, solve_to,
     to_carry)
 from shud_tpu_torch.solver.graph import (
-    Program, SolverPieces, While, WindowGraph, clone, copy_into)
+    Program, SolverPieces, Stamp, While, WindowGraph, clone, copy_into)
 
 
 class ChunkTables(NamedTuple):
@@ -200,6 +201,10 @@ BC_TABLES = (("ele_ybc", "ele_y"), ("ele_qbc", "ele_q"), ("ele_qss", "ele_ss"),
 # rows of a window in run_interval's ``rows``: the forcing, LAI and melt
 # factor tables' and each BC table's (BC_TABLES order)
 N_ROWS = 3 + len(BC_TABLES)
+# the interval graph's stamp sums (``IntervalGraph.phases``): the time
+# before a launch's first window (init, and whatever ran since the last
+# stamp), and each window's head, solve and tail
+PHASES = ("start", "head", "solve", "tail")
 
 
 def window_times(t0, w, win):
@@ -481,10 +486,19 @@ class IntervalPieces:
                 **self.solver.pieces(), "tail": self.tail,
                 "pack": self.pack}
 
-    def nodes(self) -> tuple:
-        """``lax.scan`` over the windows as a WHILE, the solve inside."""
-        return ("init", While(lambda: self.more,
-                              ("head", self.solver.loop(), "tail")),
+    def nodes(self, stamped: bool = False) -> tuple:
+        """``lax.scan`` over the windows as a WHILE, the solve inside;
+        *stamped*: a ``Stamp`` after ``init`` and after each window's
+        head, solve and tail (``PHASES``; the WHILE's test is counted in
+        the head after it)."""
+        if not stamped:
+            return ("init", While(lambda: self.more,
+                                  ("head", self.solver.loop(), "tail")),
+                    "pack")
+        start, head, solve, tail = (Stamp(k) for k in range(len(PHASES)))
+        return ("init", start,
+                While(lambda: self.more, ("head", head, self.solver.loop(),
+                                          solve, "tail", tail)),
                 "pack")
 
     def init(self):
@@ -546,6 +560,10 @@ class IntervalGraph:
     interval of more than *w_max* windows, or another ``key_of``, needs a
     new graph.
 
+    With tracing on (``trace.enabled()``, part of ``key_of``) the program
+    holds ``Stamp`` nodes (``IntervalPieces.nodes``) whose sums
+    ``phases`` reads; with it off it holds none.
+
     *capture*: build and replay the graph (the default on the card);
     False runs the same pieces eagerly, each WHILE and IF decided on the
     host (the CPU tests).  A capture, an instantiation or a launch that
@@ -562,8 +580,13 @@ class IntervalGraph:
         self.pieces = IntervalPieces(sim, w_max)
         self._idx_host = (torch.zeros_like(self.pieces.idx, device="cpu")
                           .pin_memory() if on_card else self.pieces.idx)
-        self.program = Program(self.pieces.pieces(), self.pieces.nodes(),
-                               self.capture)
+        stamped = self.key[-1]
+        self.stamps = (torch.zeros(len(PHASES) + 1, dtype=torch.int64,
+                                   device=self.pieces.idx.device)
+                       if stamped else None)
+        self.program = Program(self.pieces.pieces(),
+                               self.pieces.nodes(stamped), self.capture,
+                               self.stamps)
         self.stats = self.program.stats
         self.stats.update(syncs=0, windows=0, steps=[], warmup_newton_iters=0,
                           warmup_windows=0)
@@ -571,11 +594,13 @@ class IntervalGraph:
 
     @staticmethod
     def key_of(sim: "FusedSimulation") -> tuple:
-        """What changes the pieces: mega or edge path, per-edge output,
-        cryosphere, BC tables, quadrature, the solver's route."""
+        """What changes the program: mega or edge path, per-edge output,
+        cryosphere, BC tables, quadrature, the solver's route, tracing
+        (the stamps; last)."""
         return (sim.mega is not None, per_edge_output(sim.inp.control),
                 sim.cryo is not None, sim.bc is not None,
-                sim.bdf.quad is not None, sim.solver_kernel)
+                sim.bdf.quad is not None, sim.solver_kernel,
+                trace.enabled())
 
     def run(self, sim: "FusedSimulation", n_windows: int, rows, t0: float):
         """Advance *sim*'s state over *n_windows* windows from *t0* with
@@ -586,12 +611,14 @@ class IntervalGraph:
                              f"{self.w_max}")
         p = self.pieces
         host = self._idx_host
-        host[0] = n_windows
-        host[1] = int(np.array(float(t0)).view(np.int64))
-        host[2:].view(N_ROWS, self.w_max)[:, :n_windows] = torch.from_numpy(
-            np.asarray(rows, dtype=np.int64))
+        with trace.span("shud.interval.prepare"):
+            host[0] = n_windows
+            host[1] = int(np.array(float(t0)).view(np.int64))
+            host[2:].view(N_ROWS, self.w_max)[:, :n_windows] = (
+                torch.from_numpy(np.asarray(rows, dtype=np.int64)))
         if host is not p.idx:
-            p.idx.copy_(host, non_blocking=True)
+            with trace.span("shud.interval.upload"):
+                p.idx.copy_(host, non_blocking=True)
         dev = p.idx.device
         if self.capture and not self.program.built:
             self.program.build(dev)
@@ -602,19 +629,38 @@ class IntervalGraph:
         state = (sim.bdf, sim.buckets, sim.cryo)
         if self._last is None or any(a is not b for a, b in
                                      zip(state, self._last)):
-            copy_into(p.solver.c, to_carry(sim.bdf))
-            copy_into(p.bk, sim.buckets)
-            copy_into(p.cryo, sim.cryo)
+            with trace.span("shud.interval.upload"):
+                copy_into(p.solver.c, to_carry(sim.bdf))
+                copy_into(p.bk, sim.buckets)
+                copy_into(p.cryo, sim.cryo)
         self.program.launch(dev)
-        st = p.solver.result(sim.bdf.quad is not None)
-        self.stats["syncs"] += 1
-        self.stats["windows"] += n_windows
-        self.stats["steps"].append(st.nsteps - sim.bdf.nsteps)
-        bk, cryo = clone(p.bk), clone(p.cryo)
-        self._last = (st, bk, cryo)
-        mean_e, mean_r, mean_l = p.split(p.mean.clone())
-        return (st, bk, cryo, mean_e, mean_r, mean_l,
-                p.stages[:n_windows].clone(), p.qdowns[:n_windows].clone())
+        host_scalars = p.solver.read()
+        with trace.span("shud.interval.copy_out"):
+            st = p.solver.result(sim.bdf.quad is not None, host_scalars)
+            self.stats["syncs"] += 1
+            self.stats["windows"] += n_windows
+            self.stats["steps"].append(st.nsteps - sim.bdf.nsteps)
+            bk, cryo = clone(p.bk), clone(p.cryo)
+            self._last = (st, bk, cryo)
+            mean_e, mean_r, mean_l = p.split(p.mean.clone())
+            return (st, bk, cryo, mean_e, mean_r, mean_l,
+                    p.stages[:n_windows].clone(),
+                    p.qdowns[:n_windows].clone())
+
+    def phases(self) -> "dict | None":
+        """The device's nanoseconds in the windows' heads, solves and tails
+        since the last ``reset_phases`` (one device-to-host read; None
+        without stamps, as with tracing off)."""
+        if self.stamps is None:
+            return None
+        sums = self.stamps.tolist()
+        return {f"{k}_ns": sums[i] for i, k in enumerate(PHASES)
+                if k != "start"}
+
+    def reset_phases(self) -> None:
+        """Zero the stamp sums."""
+        if self.stamps is not None:
+            self.stamps.zero_()
 
     def close(self) -> None:
         """Free the graph."""
@@ -688,6 +734,7 @@ class FusedSimulation:
         return self.bdf.y.detach().cpu().numpy()
 
     @classmethod
+    @trace.spanned("shud.setup.create", always=True)
     def create(cls, project: str, base: str = ".",
                float_dtype: torch.dtype = torch.float64, calib=None,
                edge_kernel: "bool | str" = "auto",
@@ -838,11 +885,19 @@ class FusedSimulation:
 
     def advance_interval(self, interval_minutes: float):
         """Advance one output interval; returns (mean_e, mean_r, stages,
-        qdowns) as device tensors."""
+        qdowns) as device tensors.  Its span (``shud.advance_interval``)
+        opens the interval's number in ``trace``; the process's first is
+        recorded always."""
+        first = trace.next_interval() == 1
+        with trace.span("shud.advance_interval", always=first):
+            return self._advance(interval_minutes)
+
+    def _advance(self, interval_minutes: float):
         cs = self.inp.control
         win = cs.solver_step
         n_windows = int(round(interval_minutes / win))
-        rows = self.window_rows(self.t, n_windows, win)
+        with trace.span("shud.interval.prepare"):
+            rows = self.window_rows(self.t, n_windows, win)
         on_card = self.bdf.y.is_cuda
         if self.interval is None and self.captured is True and on_card:
             self.interval = IntervalGraph(self, n_windows)

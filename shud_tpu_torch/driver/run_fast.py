@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
+from shud_tpu_torch import trace
 from shud_tpu_torch.driver.fused import FusedSimulation
 from shud_tpu_torch.io.checkpoint import load_checkpoint, save_checkpoint
 from shud_tpu_torch.io.output import (
@@ -205,6 +206,7 @@ class IntervalWriter:
                 sink.close()
 
 
+@trace.spanned("shud.fetch")
 def _to_host(tree):
     """Tensors (in dicts, to any depth) -> numpy, other leaves unchanged:
     the tensors of one dtype and device packed into one buffer and fetched

@@ -21,7 +21,10 @@ on the card with CUDA graphs:
   with no host in its loops;
 * on the CPU (``capture=False``) the same pieces run eagerly, each node
   decided by reading its predicate: the replay logic the tests check where
-  there is no card.
+  there is no card;
+* a ``Stamp`` node reads the device's clock between two pieces and adds
+  the time since the program's previous stamp into a sum on the device
+  (``IntervalGraph.phases``: a window's head, solve and tail).
 
 ``WindowGraph`` is the solver's window (``solve_to`` on the device):
 ``head``, WHILE(active) {``begin``, Newton iterations 2..``newton_iters``
@@ -40,6 +43,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch.utils import _pytree as pytree
 
+from shud_tpu_torch import trace
 from shud_tpu_torch.core.cuda_build import load_library
 from shud_tpu_torch.solver import bdf, kernels
 from shud_tpu_torch.solver.bdf import (
@@ -85,6 +89,15 @@ class If(NamedTuple):
     body: tuple
 
 
+class Stamp(NamedTuple):
+    """A reading of the device's clock (``%globaltimer``, nanoseconds; the
+    host's ``perf_counter_ns`` on the CPU): the time since the program's
+    previous stamp is added into entry *slot* of the program's stamp
+    buffer, whose last entry keeps the reading for the next stamp."""
+
+    slot: int
+
+
 _SIDE = {}
 
 
@@ -108,13 +121,17 @@ class Program:
     *capture*: ``build`` makes one CUDA graph of it and ``launch`` replays
     it; False: ``launch`` runs the pieces eagerly, each node decided on
     the host.  A capture, an assembly, an instantiation or a launch that
-    fails raises: nothing falls back to the eager form.
+    fails raises: nothing falls back to the eager form.  *stamps*: the
+    int64 buffer of the ``Stamp`` nodes' sums (one more entry than slots,
+    the last the previous reading), on the program's device.
 
     ``stats``: graph launches, and the warm-up, capture and instantiation
     seconds of ``build``."""
 
-    def __init__(self, pieces: dict, nodes: tuple, capture: bool):
+    def __init__(self, pieces: dict, nodes: tuple, capture: bool,
+                 stamps: "torch.Tensor | None" = None):
         self.pieces, self.nodes, self.capture = pieces, nodes, capture
+        self.stamps = stamps
         self._segments = {}
         self._graph = self._exec = None
         self.stats = {"launches": 0, "warmup_s": None, "capture_s": None,
@@ -124,12 +141,13 @@ class Program:
     def built(self) -> bool:
         return self._exec is not None
 
+    @trace.spanned("shud.graph.build", always=True)
     def build(self, device: torch.device) -> None:
         """Warm up, capture each piece, assemble and instantiate.  The
         warm-up runs every piece once, so it moves whatever state they
         advance: the caller uploads its state after."""
         torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         side = _side_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
@@ -137,7 +155,7 @@ class Program:
                 fn()
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
-        t1 = time.perf_counter()
+        t1 = time.perf_counter_ns()
         pool = torch.cuda.graph_pool_handle()
         for name, fn in self.pieces.items():
             g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -148,11 +166,15 @@ class Program:
                 raise RuntimeError(f"capturing the {name} piece failed: "
                                    f"{exc}") from exc
             self._segments[name] = g  # kept: they hold the pool's memory
-        t2 = time.perf_counter()
+        t2 = time.perf_counter_ns()
         self._assemble()
         torch.cuda.synchronize(device)
-        self.stats.update(warmup_s=t1 - t0, capture_s=t2 - t1,
-                          instantiate_s=time.perf_counter() - t2)
+        t3 = time.perf_counter_ns()
+        for name, a, z in (("warmup", t0, t1), ("capture", t1, t2),
+                           ("instantiate", t2, t3)):
+            trace.record(f"shud.graph.{name}", a, z)
+        self.stats.update(warmup_s=(t1 - t0) / 1e9, capture_s=(t2 - t1) / 1e9,
+                          instantiate_s=(t3 - t2) / 1e9)
 
     def _assemble(self) -> None:
         lib = load_library()
@@ -166,6 +188,12 @@ class Program:
                     _check(lib.shud_graph_add_child(
                         graph, dep, vp(self._segments[n].raw_cuda_graph()),
                         ctypes.byref(node)), f"adding the {n} piece")
+                elif isinstance(n, Stamp):
+                    buf = self.stamps
+                    _check(lib.shud_graph_add_stamp(
+                        graph, dep, vp(buf.data_ptr()), n.slot,
+                        buf.numel() - 1, ctypes.byref(node)),
+                        "adding a stamp")
                 elif isinstance(n, While):
                     pred, body = vp(n.pred().data_ptr()), vp()
                     handle = ctypes.c_ulonglong()
@@ -208,6 +236,7 @@ class Program:
             out[name] = dict(zip(("kernel", "copy", "memset", "other"), n))
         return out
 
+    @trace.spanned("shud.interval.launch")
     def launch(self, device: torch.device) -> None:
         """Run the program once: one graph launch on *device*'s current
         stream, or the pieces eagerly."""
@@ -224,6 +253,10 @@ class Program:
         for n in nodes:
             if isinstance(n, str):
                 self.pieces[n]()
+            elif isinstance(n, Stamp):
+                buf, now = self.stamps, time.perf_counter_ns()
+                buf[n.slot] += now - int(buf[-1])
+                buf[-1] = now
             elif isinstance(n, While):
                 while bool(n.pred()):
                     self._run(n.body)
@@ -328,12 +361,18 @@ class SolverPieces:
             chain = (If(lambda: self.nw.more, (p + "newton", *chain)),)
         return While(lambda: self.active, (p + "begin", *chain, p + "end"))
 
-    def result(self, has_quad: bool) -> BDFState:
-        """The carry as a ``BDFState`` of copies (one host read of the
-        packed scalars, which ``tail`` wrote); its Newton iterations are
-        added to ``bdf.newton_iters``."""
-        host = self.packed.cpu().numpy()
+    def read(self):
+        """The one host read of the packed scalars, which ``tail`` wrote:
+        the host waits here until the program has run."""
+        with trace.span("shud.interval.wait"):
+            host = self.packed.cpu().numpy()
         bdf.host_syncs += 1
+        return host
+
+    def result(self, has_quad: bool, host) -> BDFState:
+        """The carry as a ``BDFState`` of copies, with the packed scalars
+        *host* (``read``); its Newton iterations are added to
+        ``bdf.newton_iters``."""
         bdf.newton_iters += int(host[len(STEPS) + COUNTS.index("nni")])
         c = self.c
         return from_carry(
@@ -391,7 +430,7 @@ class WindowGraph:
         p.c.nni.zero_()
         self.program.launch(p.c.y.device)
         self.stats["syncs"] += 1
-        out = p.result(state.quad is not None)
+        out = p.result(state.quad is not None, p.read())
         self.stats["steps"].append(out.nsteps - state.nsteps)
         self._last = out
         return out

@@ -13,7 +13,9 @@ cannot hold.  The sharded RHS (2 gloo ranks on the card, 32,768 cells):
 dY through edge_flux bitwise its plain path's, the coefficient path's dY
 and the hand J·v (edge_coeff, edge_apply) within 1e-6 scaled.  The
 captured programs (WindowGraph, IntervalGraph, the -g driver's
-SplitGraph) bitwise their eager loops.
+SplitGraph) bitwise their eager loops.  The interval graph's stamps
+(``%globaltimer``): a pair around a sleep against CUDA events; only with
+tracing on, the captured pieces unchanged.
 """
 
 import numpy as np
@@ -466,6 +468,97 @@ def test_interval_graph_matches_window_replay(mega):
     counts = {**edge.device_launch_counts(), **M.device_launch_counts()}
     # the three forms' windows, and the interval graph's warm-up window
     assert counts[diag] == 3 * 15 + 1
+
+
+def test_stamp_pair_times_a_sleep():
+    """Two ``Stamp`` nodes around a sleep kernel in an assembled program
+    (``%globaltimer`` on the device) read the sleep within 0.9-1.5 times
+    CUDA events' time for the same sleep launched eagerly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs and kernels)")
+    from shud_tpu_torch.solver.graph import Program, Stamp
+
+    dev = torch.device("cuda")
+    cycles = 2 * 10**6  # ~1 ms at 1.98 GHz
+    sums = torch.zeros(3, dtype=torch.int64, device=dev)
+    prog = Program({"sleep": lambda: torch.cuda._sleep(cycles)},
+                   (Stamp(0), "sleep", Stamp(1)), True, sums)
+    prog.build(dev)
+    for _ in range(3):
+        sums.zero_()
+        prog.launch(dev)
+        torch.cuda.synchronize()
+        stamped = sums[1].item() / 1e9
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(cycles)
+        e1.record()
+        e1.synchronize()
+        assert 0.9 <= stamped / (e0.elapsed_time(e1) / 1e3) <= 1.5
+        assert sums[2].item() > 0  # the last reading, kept
+    prog.close()
+
+
+# mega-32k's interval graph before the stamps existed (the captured
+# pieces' nodes by type, ``Program.node_counts``; an H100, torch 2.11)
+MEGA_32K_NODES = {
+    "init": {"kernel": 5, "copy": 1, "memset": 0, "other": 0},
+    "head": {"kernel": 244, "copy": 33, "memset": 0, "other": 0},
+    "begin": {"kernel": 47, "copy": 0, "memset": 0, "other": 0},
+    "newton": {"kernel": 46, "copy": 0, "memset": 0, "other": 0},
+    "end": {"kernel": 2, "copy": 0, "memset": 0, "other": 0},
+    "tail": {"kernel": 40, "copy": 1, "memset": 0, "other": 0},
+    "pack": {"kernel": 17, "copy": 2, "memset": 0, "other": 0}}
+
+
+def test_interval_graph_stamps_only_when_traced():
+    """mega-32k (the 128 x 128 synthetic watershed on the mega path):
+    with tracing off the interval graph's pieces have the nodes they had
+    before tracing existed and the program no stamp; with tracing on the
+    same pieces and four stamps, whose head, solve and tail sums are
+    positive and fit in the intervals' wall; off again, no stamp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs and kernels)")
+    import time
+
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.driver.fused import FusedSimulation
+    from shud_tpu_torch.solver.graph import Stamp, While
+    from shud_tpu_torch.utils.synthetic import make_synthetic_project
+
+    def stamps(nodes):
+        return sum(1 if isinstance(n, Stamp) else
+                   stamps(n.body) if isinstance(n, While) else 0
+                   for n in nodes)
+
+    sim = FusedSimulation.create(
+        "synthetic", inp=make_synthetic_project(128, 128, end_day=1.0),
+        float_dtype=torch.float32, device="cuda")
+    assert sim.mega is not None
+    trace.disable()
+    sim.advance_interval(60.0)
+    g = sim.interval
+    assert g.program.node_counts() == MEGA_32K_NODES
+    assert stamps(g.program.nodes) == 0 and g.phases() is None
+    trace.enable()
+    try:
+        sim.advance_interval(60.0)
+        g = sim.interval
+        assert g.program.node_counts() == MEGA_32K_NODES
+        assert stamps(g.program.nodes) == 4
+        g.reset_phases()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            sim.advance_interval(60.0)
+        wall = time.perf_counter() - t0
+        ph = g.phases()
+        assert all(v > 0 for v in ph.values())
+        assert sum(ph.values()) / 1e9 <= wall
+    finally:
+        trace.disable()
+    sim.advance_interval(60.0)
+    assert stamps(sim.interval.program.nodes) == 0
 
 
 @pytest.mark.parametrize("with_lake", (False, True))
