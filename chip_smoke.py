@@ -26,7 +26,10 @@ and the script exits nonzero; nothing falls back to the CPU):
     with a branched river network;
  4. each edge kernel against its plain PyTorch version (both boundary
     modes, every 7th cell dry); per-call times (CUDA events, median of
-    20), profiler device time, and the bound;
+    20), profiler device time, and the bound; the two tangent factor
+    kernels (edge_tangent.cu) on a random slice, every factor bitwise
+    rhs._tangent_factors (both boundary modes), their times beside the
+    plain version of the whole factor build;
  5. each mega kernel against its plain version on the 32k, lake and
     branched meshes, both boundary modes: mega_rhs and mega_jvp bitwise
     and mega_diag bitwise equal, all bitwise repeatable; times and
@@ -45,7 +48,8 @@ and the script exits nonzero; nothing falls back to the CPU):
     just after (the solver kernels on both: per step one bdf_begin and one
     step end, per Newton iteration one Newton tail, 1 + m + m(m+1)/2
     krylov_axpy and m + 1 krylov_column; the graph's warm-up one step of
-    two iterations): at 131k edge_coeff once per Newton iteration, edge_apply
+    two iterations): at 131k edge_coeff, tangent_cell and tangent_reach
+    once per Newton iteration, edge_apply
     krylov_m times and edge_flux once a window (the diagnostics; the run
     has no water-balance quadrature), no mega kernel; at 32k the mega
     trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
@@ -169,7 +173,7 @@ and the script exits nonzero; nothing falls back to the CPU):
     torch.sum; torch.dot(out=) beside it), per call and in the device
     nodes of one captured call; phase 20 also counts the nodes of each
     captured piece of the interval graph on both routes.
-The line before the last is a JSON object of the ten kernels; the last is
+The line before the last is a JSON object of the twelve kernels; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -197,6 +201,11 @@ REPLACES = {
     "edge_coeff": "shud_tpu/core/pallas_edge.py:532",
     "edge_apply": "shud_tpu/core/pallas_edge.py:664",
 }
+# the edge path's tangent factors: no Pallas kernel (XLA fuses
+# jax.linearize of the RHS)
+TANGENT_SOURCE = "shud_tpu_torch/csrc/edge_tangent.cu"
+TANGENT_REPLACES = dict.fromkeys(("tangent_cell", "tangent_reach"),
+                                 "shud_tpu/core/rhs.py (jax.linearize)")
 MEGA_REPLACES = {
     "mega_rhs": "shud_tpu/core/pallas_mega.py:1446",
     "mega_jvp": "shud_tpu/core/pallas_mega.py:1478",
@@ -300,6 +309,9 @@ F64_OPS_PER_S = 34e12  # outside the tensor cores
 # three edges and assembly), segment and reach for the mega kernels
 # (mega.cu)
 EDGE_OPS = {"edge_flux": 45, "edge_coeff": 110, "edge_apply": 10}
+# the tangent factor kernels (edge_tangent.cu): per cell, and per segment
+# or reach (the larger of the two, the reach's two Manning tangents)
+TANGENT_OPS = {"tangent_cell": 230, "tangent_reach": 110}
 MEGA_OPS = {
     "mega_rhs": {"cell": 290, "seg": 40, "reach": 55},
     "mega_jvp": {"cell": 590, "seg": 80, "reach": 110},
@@ -636,6 +648,51 @@ def phase_kernels(md, torch, edge, results, device_times):
     for name, (kern, plain, n_bytes) in calls.items():
         timed(name, kern, plain, n_bytes, EDGE_OPS[name] * n_edges,
               err[name], results, device_times)
+    phase_tangent(md, dm, torch, edge, results, device_times)
+
+
+def phase_tangent(md, dm, torch, edge, results, device_times):
+    """Phase 4, the tangent factor kernels (csrc/edge_tangent.cu): every
+    factor bitwise its plain version (rhs._tangent_factors) on a random
+    slice with dry cells, closed and open boundary; each kernel's time
+    against its bytes, beside the plain version of the whole factor
+    build."""
+    from shud_tpu_torch.core import rhs as R
+
+    f32, dev = torch.float32, torch.device(DEVICE)
+    ne, ns, nr = md.num_ele, md.num_seg, md.num_riv
+    fs, y = random_slice(md, f32, dev, seed=3)
+    for cb in (True, False):
+        _, _, saved = R._rhs(dm, fs, y, cb, False, [])
+        got = R._tangent_factors_kernel(dm, fs, saved)
+        ref = R._tangent_factors(dm, fs, saved)
+        torch.cuda.synchronize()
+        parted = [k for k in R._FACTORS if not torch.equal(got[k], ref[k])]
+        log(f"  tangent factors cb={cb}: {len(R._FACTORS)} factors, "
+            f"{len(parted)} not bitwise {parted}")
+        check(not parted, f"tangent factors not bitwise: {parted}")
+    cell, flags, get = R._tangent_cell_inputs(dm, fs, saved)
+    out = dict(zip(R._TANGENT_CELL_OUT,
+                   edge.tangent_cell(cell, flags, md.num_lake > 0)))
+    floats, rflags = R._tangent_reach_inputs(dm, get, out)
+    # bytes: every input once, the reach kernel's per-cell fields at the
+    # segments' cells only, and every output once
+    cell_bytes = nbytes(*(t for _, t in cell + flags)) + 4 * 16 * ne
+    seg, at_cell, riv = R._TANGENT_REACH_FIELDS
+    reach_bytes = (4 * (len(seg) + len(at_cell)) * ns + 4 * len(riv) * nr
+                   + 8 * (2 * ns + 4 * nr) + 4 * (6 * ns + 5 * nr) + 8 * nr)
+
+    def plain():
+        return R._tangent_factors(dm, fs, saved)
+
+    timed("tangent_cell",
+          lambda: edge.tangent_cell(cell, flags, md.num_lake > 0), plain,
+          cell_bytes, TANGENT_OPS["tangent_cell"] * ne, 0.0, results,
+          device_times)
+    timed("tangent_reach",
+          lambda: edge.tangent_reach(floats, rflags, ns, nr), plain,
+          reach_bytes, TANGENT_OPS["tangent_reach"] * (ns + nr), 0.0,
+          results, device_times)
 
 
 def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
@@ -1855,7 +1912,8 @@ def phase_refined(inp, torch, edge, bdf) -> dict:
         f"{warm['warmup_newton_iters']} of them the interval graph's "
         f"warm-up, and {warm['warmup_windows']} window), launches {counts}; "
         f"peak device memory {peak:.2f} GiB")
-    check(counts["edge_coeff"] == iters
+    check(counts["edge_coeff"] == counts["tangent_cell"]
+          == counts["tangent_reach"] == iters
           and counts["edge_apply"] == k.cfg.krylov_m * iters
           and counts["edge_flux"] == STORM_WINDOWS + warm["warmup_windows"],
           f"refined: {counts} for {iters} Newton iterations")
@@ -2274,7 +2332,7 @@ def phase_calib(torch, kernels, bdf, smi: str) -> dict:
               and counts["mega_diag"] == windows,
               f"calibration: {counts} for {iters} Newton iterations in "
               f"{windows} windows")
-        for k in ("edge_flux", "edge_coeff", "edge_apply"):
+        for k in kernels[0].launch_counts:  # the edge kernels
             check(counts[k] == 0, f"{k} launched in the calibration")
         mem = [c.device_bytes for c in cands]
         check(all(abs(m - mem[0]) <= 1 << 20 for m in mem),
@@ -2380,10 +2438,12 @@ def phase_main_paths(inp, inp32, torch, edge, mega, solver, bdf,
         m = run["krylov_m"]
         if want is edge:
             # linearized once per Newton iteration (the coefficient kernel
-            # in the primal), one apply per Krylov vector; edge_flux only
-            # in the window diagnostics (no quad_rates: SHUD_WB_DIAG off)
+            # in the primal, the two tangent factor kernels after it), one
+            # apply per Krylov vector; edge_flux only in the window
+            # diagnostics (no quad_rates: SHUD_WB_DIAG off)
             n = run["launches"]
             check(n["edge_coeff"] == it and n["edge_apply"] == m * it
+                  and n["tangent_cell"] == n["tangent_reach"] == it
                   and n["edge_flux"] == windows,
                   f"{name}: {n} for {it} Newton iterations in "
                   f"{windows} windows")
@@ -2580,7 +2640,9 @@ def phase_interval(runs, torch, kernels, bdf, graph) -> dict:
             m = sim.cfg.krylov_m
             check(counts[first] == iters + warm_it
                   and counts[tangent] == m * (iters + warm_it)
-                  and counts[diag] == windows + warm_w,
+                  and counts[diag] == windows + warm_w
+                  and (sim.mega is not None or counts["tangent_cell"]
+                       == counts["tangent_reach"] == iters + warm_it),
                   f"{name} {form}: {counts} for {iters} Newton iterations "
                   f"(+{warm_it} warm-up) in {windows} windows "
                   f"(+{warm_w} warm-up)")
@@ -2861,7 +2923,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if not all((ROOT / src).is_file()
-               for src in (EDGE_SOURCE, MEGA_SOURCE, SOLVER_SOURCE)):
+               for src in (EDGE_SOURCE, TANGENT_SOURCE, MEGA_SOURCE,
+                           SOLVER_SOURCE)):
         print("chip_smoke: shud_tpu_torch is not next to this script",
               file=sys.stderr)
         return 2
@@ -3049,10 +3112,13 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep[name],
                     launches=counts[name], **results[name])
                for src, rep in ((EDGE_SOURCE, REPLACES),
+                                (TANGENT_SOURCE, TANGENT_REPLACES),
                                 (MEGA_SOURCE, MEGA_REPLACES),
                                 (SOLVER_SOURCE, SOLVER_REPLACES))
                for name in rep]
     for k in kernels:  # the later main paths' launches
+        if k["name"] in TANGENT_REPLACES:  # the sharded driver's are 0
+            continue
         if k["name"] in REPLACES:  # phase 17's, per rank
             k["sharded_launches"] = [
                 n[k["name"]] for n in summary["sharded_131k"]["launches"]]

@@ -117,6 +117,8 @@ def _load() -> ctypes.CDLL:
     lib.shud_edge_coeff.argtypes = [p] * 23 + [i, i, p]
     lib.shud_edge_apply.argtypes = [p] * 13 + [i, p]
     pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+    lib.shud_tangent_cell.argtypes = [pp, p, p, i, i, p]
+    lib.shud_tangent_reach.argtypes = [pp, p, p, p, i, i, p]
     for name in ("shud_mega_rhs", "shud_mega_jvp", "shud_mega_diag"):
         getattr(lib, name).argtypes = [pp, ip, p]
     lib.shud_mega_occupancy.argtypes = [i, ip]
@@ -142,6 +144,7 @@ def _load() -> ctypes.CDLL:
     for name, args in solver_args.items():
         getattr(lib, f"shud_{name}").argtypes = args
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,
+               lib.shud_tangent_cell, lib.shud_tangent_reach,
                lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag,
                lib.shud_mega_occupancy, lib.shud_mega_barrier_probe,
                *(getattr(lib, f"shud_graph_{n}") for n in graph_args),

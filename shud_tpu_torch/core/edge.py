@@ -28,9 +28,17 @@ held against) it goes through ``EdgeFluxFunction``, whose forward is
 ``edge_coeff`` and whose ``jvp`` is ``edge_apply``.  The tangent follows
 JAX's conventions (0.5 at ``maximum`` ties, select at ``where``), so it
 equals ``jax.jvp`` of the reference's XLA path.
+
+Beside them, the launches of the two kernels of ``csrc/edge_tangent.cu``
+(``tangent_cell``, ``tangent_reach``): the rest of ``rhs.linearize``'s
+tangent factors on the kernel path.  Their plain version is
+``rhs._tangent_factors``, which runs on every other route; these wrappers
+take CUDA tensors only.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -40,7 +48,8 @@ from shud_tpu_torch.core.launches import LaunchCounts
 from shud_tpu_torch.core.physics import (
     _TINY, absolute, cbrt, maximum, minimum, pow23)
 
-_counts = LaunchCounts(("edge_flux", "edge_coeff", "edge_apply"))
+_counts = LaunchCounts(("edge_flux", "edge_coeff", "edge_apply",
+                        "tangent_cell", "tangent_reach"))
 # launches of each CUDA kernel by its wrapper since the last
 # reset_launch_counts(); device_launch_counts() gives the kernels' own
 # count, which also counts the runs of a captured launch
@@ -342,6 +351,71 @@ def edge_apply(coeffs, tsf, tgw, tkh, et):
     _check(et, [("tsf", tsf), ("tgw", tgw), ("tkh", tkh)]
            + list(zip(names, coeffs)))
     return tuple(_edge_apply_op(tsf, tgw, tkh, et.nabr, list(coeffs)))
+
+
+def _check_fields(fields, dtype, device):
+    """Validate what a tangent kernel reads: ``(name, tensor, length)``
+    triples, each of *dtype*, 1-D of that length, contiguous, on
+    *device*."""
+    for name, t, n in fields:
+        if t.device != device:
+            raise ValueError(f"{name} on {t.device}, the kernel's inputs on "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}")
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"({n},)")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def _tangent_args(name, floats, flags):
+    """Validate *floats* (float32) and *flags* (int64) on the first's CUDA
+    device; returns ``(device, their addresses as a pointer array)``."""
+    dev = floats[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors, got {dev}")
+    _check_fields(floats, torch.float32, dev)
+    _check_fields(flags, torch.int64, dev)
+    ptrs = [t.data_ptr() for _, t, _ in floats + flags]
+    return dev, (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def tangent_cell(floats, flags, lake: bool) -> torch.Tensor:
+    """The cell kernel: ``[16, ne]`` factors (``rhs._TANGENT_CELL_OUT``)
+    from *floats* (``rhs._TANGENT_CELL_FIELDS``, float32 ``[ne]``) and
+    *flags* (``i_bc``, ``i_lake``, int64 ``[ne]``); lake cells' factors 0
+    when *lake*."""
+    ne = floats[0][1].shape[0]
+    dev, ptrs = _tangent_args("tangent_cell", [(k, t, ne) for k, t in floats],
+                              [(k, t, ne) for k, t in flags])
+    # N_CELL_OUT rows
+    out = torch.empty((16, ne), dtype=torch.float32, device=dev)
+    err = load_library().shud_tangent_cell(
+        ptrs, out.data_ptr(), _counts.pointer("tangent_cell", dev), ne,
+        int(lake), torch._C._cuda_getCurrentRawStream(dev.index))
+    _raise_if(err, "tangent_cell")
+    launch_counts["tangent_cell"] += 1
+    return out
+
+
+def tangent_reach(floats, flags, ns: int, nr: int):
+    """The reach kernel: ``([11, ...] factors, dn)``, the six segment rows
+    ``[ns]`` then the five reach rows ``[nr]`` (``rhs._TANGENT_SEG_OUT``,
+    ``rhs._TANGENT_RIV_OUT``) in one float32 buffer, and the downstream
+    index ``[nr]`` (int64).  *floats* and *flags*: ``(name, tensor,
+    length)`` in ``rhs._TANGENT_REACH_FIELDS`` order."""
+    dev, ptrs = _tangent_args("tangent_reach", floats, flags)
+    out = torch.empty(6 * ns + 5 * nr, dtype=torch.float32, device=dev)
+    dn = torch.empty(nr, dtype=torch.int64, device=dev)
+    err = load_library().shud_tangent_reach(
+        ptrs, out.data_ptr(), dn.data_ptr(),
+        _counts.pointer("tangent_reach", dev), ns, nr,
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    _raise_if(err, "tangent_reach")
+    launch_counts["tangent_reach"] += 1
+    return out, dn
 
 
 # ---------------------------------------------------------------------------

@@ -855,9 +855,21 @@ def _lake_lin(m, lake_stg, ev_raw, prcp, inflow, area):
     return -evap_lk - inflow / (area * area) * _lake_toparea_lin(m, lake_stg)
 
 
-def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
-    """The factors of ``linearize`` and the J·v closure over them."""
-    ne, nr = m.num_ele, m.num_riv
+# the J·v closure's factors, by name: the 3x3 local Jacobian of (dsf, dus,
+# dgw) (``lj``), the lateral sums' divisions, d eff_kh / d gw, the BC masks,
+# the segment and reach factors and the downstream index
+_LJ = ("ssf", "sus", "sgw", "usf", "uus", "ugw", "gsf", "gus", "ggw")
+_FACTORS = _LJ + ("a_surf", "a_sub", "kh_gw", "keep_gw", "keep_rs", "w_j",
+                  "b_sf", "b_us", "b_gw", "sb_rs", "sb_gw", "p_self", "p_dn",
+                  "dn", "dr_area", "dr_rs")
+
+
+def _tangent_factors(m, fs: ForcingSlice, s: dict) -> dict:
+    """The J·v closure's factors (``_FACTORS``) from the primal's
+    intermediates *s*: the plain version of the kernels of
+    ``csrc/edge_tangent.cu`` (``_tangent_factors_kernel``), taken on the
+    CPU, in float64 and off the edge kernels.  Lake-bank edges and lakes
+    are ``_tangent``'s."""
     nl = m.num_lake if m.num_lake > 0 else 0
     sf, us, gw, rs, cu = s["sf"], s["us"], s["gw"], s["riv_stage"], s["cu"]
     dtype = sf.dtype
@@ -870,25 +882,17 @@ def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
     qi, qx, qr = v["qi"], v["qx"], v["qr"]
     keep_cell = torch.ones_like(sf)
     if nl > 0:
-        is_lake_cell = m.i_lake > 0
-        keep_cell = (~is_lake_cell).to(dtype)
+        keep_cell = (~(m.i_lake > 0)).to(dtype)
     inv_sy = keep_cell / m.sy
     bc_sy = keep_gw * inv_sy
-    lj = {}
+    out = {}
     for x in ("sf", "us", "gw"):
-        lj["s" + x] = (-qi[x] + qx[x] - v["es"][x]) * keep_cell
-        lj["u" + x] = (qi[x] - qr[x] - v["eu"][x] - v["tu"][x]) * inv_sy
-        lj["g" + x] = (qr[x] - qx[x] - v["eg"][x] - v["tg"][x]) * bc_sy
+        out["s" + x] = (-qi[x] + qx[x] - v["es"][x]) * keep_cell
+        out["u" + x] = (qi[x] - qr[x] - v["eu"][x] - v["tu"][x]) * inv_sy
+        out["g" + x] = (qr[x] - qx[x] - v["eg"][x] - v["tg"][x]) * bc_sy
     a_surf = -keep_cell / m.area
     a_sub = -bc_sy / m.area
     kh_gw = c["kh_gw"]
-
-    # --- lake-bank edges, merged by mask (no fu_sub on their lake sums) ---
-    if nl > 0:
-        has_lake, lk, nb = m.has_lake, m.lk, m.nb
-        ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk = _lake_bank_lin(
-            m, sf, gw, s["lake_stg"], cu, kh_gw)
-        lake_edge = has_lake & ~is_lake_cell[:, None]
 
     # --- segments: d q_seg_surf, d q_seg_sub on the gathered tangents ---
     se, sr = m.seg_ele, m.seg_riv
@@ -919,9 +923,115 @@ def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
     f_da, f_w = ph.fun_da_to_dy_lin(s["d_area"], s["r_topw"], bs)
     dr_area = keep_rs * f_da * ph.d_max(da_raw, floor) / m.riv_length
     dr_rs = keep_rs * (f_w * topw_rs - f_da * ph.d_max(floor, da_raw) * csa_rs)
+    out.update(a_surf=a_surf, a_sub=a_sub, kh_gw=kh_gw, keep_gw=keep_gw,
+               keep_rs=keep_rs, w_j=w_j, b_sf=b_sf, b_us=b_us, b_gw=b_gw,
+               sb_rs=sb_rs, sb_gw=sb_gw, p_self=p_self, p_dn=p_dn, dn=dn,
+               dr_area=dr_area, dr_rs=dr_rs)
+    return out
 
-    # --- lakes: evaporation clamp, bathymetry, the bucket's division ---
+
+# the kernels' inputs, in csrc/edge_tangent.cu's CellField and ReachField
+# order (the primal's intermediates, the forcing, the mesh), and their
+# output rows
+_TANGENT_CELL_FIELDS = (
+    "sf", "us", "gw", "deficit", "satn", "sat_kr", "theta", "kmax", "ibeta",
+    "pot_evap", "lai", "e_ic", "pot_tran", "net_prcp", "fu_surf", "fu_sub",
+    "aq_depth", "theta_s", "theta_r", "mac_d", "mac_ksat_h", "geo_v_area_f",
+    "ksat_h", "beta", "veg_frac", "imp_af", "wetland_level",
+    "rootreach_level", "inf_d", "inf_ksat_v", "h_area_f", "mac_ksat_v",
+    "ksat_v", "theta_fc", "sy", "area")
+_TANGENT_CELL_OUT = _LJ + ("a_surf", "a_sub", "kh_gw", "keep_gw", "sum_sf",
+                           "sum_us", "sum_gw")
+_TANGENT_REACH_FIELDS = (
+    ("seg_isf", "seg_isf_raw", "seg_cwr", "seg_length"),  # [ns]
+    ("depression", "aq_depth", "gw", "eff_kh", "fu_sub", "kh_gw", "sum_sf",
+     "sum_us", "sum_gw"),  # [ne], read at a segment's cell
+    ("riv_stage", "riv_depth", "riv_ksat_h", "riv_bed_thick",
+     "riv_bank_slope", "riv_bottom_width", "r_csa", "r_per", "r_hyd",
+     "s_down", "s_out", "d_area_raw", "d_area", "r_topw", "riv_avg_rough",
+     "riv_dist2down", "riv_length"))  # [nr]
+_TANGENT_SEG_OUT = ("w_j", "b_sf", "b_us", "b_gw", "sb_rs", "sb_gw")
+_TANGENT_RIV_OUT = ("p_self", "p_dn", "dr_area", "dr_rs", "keep_rs")
+
+
+def _tangent_cell_inputs(m, fs: ForcingSlice, s: dict):
+    """``(floats, flags, get)``: the cell kernel's inputs as ``(name,
+    tensor)`` in ``_TANGENT_CELL_FIELDS`` order and ``i_bc``, ``i_lake``,
+    and *get*, which finds any input by name in the primal's
+    intermediates *s*, the forcing or the mesh."""
+    src = dict(fs._asdict())
+    src.update(s["cu"]._asdict())
+    src.update({k: s[k] for k in ("sf", "us", "gw", "ibeta", "riv_stage",
+                                  "seg_isf", "seg_isf_raw", "r_csa", "r_per",
+                                  "r_hyd", "s_down", "s_out", "d_area_raw",
+                                  "d_area", "r_topw")})
+
+    def get(k):
+        return src[k] if k in src else getattr(m, k)
+
+    return ([(k, get(k)) for k in _TANGENT_CELL_FIELDS],
+            [(k, getattr(m, k)) for k in ("i_bc", "i_lake")], get)
+
+
+def _tangent_reach_inputs(m, get, cell_out: dict):
+    """``(floats, flags)``: the reach kernel's inputs as ``(name, tensor,
+    length)`` in ``_TANGENT_REACH_FIELDS`` order, then the segments' and
+    reaches' index and code arrays; *cell_out* the cell kernel's rows by
+    name (``_TANGENT_CELL_OUT``), *get* as ``_tangent_cell_inputs``'."""
+    ne, nr, ns = m.num_ele, m.num_riv, m.num_seg
+    seg, at_cell, riv = _TANGENT_REACH_FIELDS
+    floats = ([(k, get(k), ns) for k in seg]
+              + [(k, cell_out[k] if k in cell_out else get(k), ne)
+                 for k in at_cell]
+              + [(k, get(k), nr) for k in riv])
+    flags = ([(k, getattr(m, k), ns) for k in ("seg_ele", "seg_riv")]
+             + [(k, getattr(m, k), nr) for k in (
+                 "riv_bc", "riv_down", "riv_to_lake", "riv_outlet_code")])
+    return floats, flags
+
+
+def _tangent_factors_kernel(m, fs: ForcingSlice, s: dict) -> dict:
+    """``_tangent_factors`` as two launches, ``edge.tangent_cell`` then
+    ``edge.tangent_reach`` (``csrc/edge_tangent.cu``), each factor bitwise
+    its plain version's.  Float32 CUDA tensors only; anything else
+    raises."""
+    nr, ns = m.num_riv, m.num_seg
+    cell, flags, get = _tangent_cell_inputs(m, fs, s)
+    out = dict(zip(_TANGENT_CELL_OUT,
+                   edge_mod.tangent_cell(cell, flags, m.num_lake > 0)))
+    buf, out["dn"] = edge_mod.tangent_reach(
+        *_tangent_reach_inputs(m, get, out), ns, nr)
+    out.update(zip(_TANGENT_SEG_OUT, buf[:6 * ns].view(6, ns)))
+    out.update(zip(_TANGENT_RIV_OUT, buf[6 * ns:].view(5, nr)))
+    return {k: out[k] for k in _FACTORS}
+
+
+def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
+    """The factors of ``linearize`` and the J·v closure over them: on the
+    edge kernels' route (float32 on CUDA) from ``_tangent_factors_kernel``,
+    elsewhere from ``_tangent_factors``."""
+    ne, nr = m.num_ele, m.num_riv
+    nl = m.num_lake if m.num_lake > 0 else 0
+    sf, gw, cu = s["sf"], s["gw"], s["cu"]
+    kernel = _on_kernels(m, sf)
+    fac = (_tangent_factors_kernel if kernel else _tangent_factors)(m, fs, s)
+    lj = {k: fac[k] for k in _LJ}
+    a_surf, a_sub, kh_gw = fac["a_surf"], fac["a_sub"], fac["kh_gw"]
+    keep_gw, keep_rs, dn = fac["keep_gw"], fac["keep_rs"], fac["dn"]
+    w_j, b_sf, b_us, b_gw = fac["w_j"], fac["b_sf"], fac["b_us"], fac["b_gw"]
+    sb_rs, sb_gw = fac["sb_rs"], fac["sb_gw"]
+    p_self, p_dn = fac["p_self"], fac["p_dn"]
+    dr_area, dr_rs = fac["dr_area"], fac["dr_rs"]
+    se, sr = m.seg_ele, m.seg_riv
+
     if nl > 0:
+        # lake-bank edges, merged by mask (no fu_sub on their lake sums)
+        is_lake_cell = m.i_lake > 0
+        has_lake, lk, nb = m.has_lake, m.lk, m.nb
+        ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk = _lake_bank_lin(
+            m, sf, gw, s["lake_stg"], cu, kh_gw)
+        lake_edge = has_lake & ~is_lake_cell[:, None]
+        # lakes: evaporation clamp, bathymetry, the bucket's division
         area = s["lake_area"]
         inv_area = 1.0 / area
         c_lk = _lake_lin(m, s["lake_stg"], s["q_lake_evap_raw"],
@@ -929,8 +1039,7 @@ def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
                          s["q_lake_rivin"] + s["q_lake_sub"]
                          + s["q_lake_surf"], area)
 
-    apply = (edge_mod.edge_apply if _on_kernels(m, sf)
-             else edge_mod.edge_apply_plain)
+    apply = edge_mod.edge_apply if kernel else edge_mod.edge_apply_plain
     et, gl, fu_sub = m.edge_tables, m.lists, fs.fu_sub
 
     def jvp(vec):

@@ -130,7 +130,8 @@ def test_cpu_wrappers_run_plain_versions():
     f = E.edge_apply_plain(d[2:], *s["tan_t"], et)
     assert all(torch.equal(x, y) for x, y in zip(e, f))
     assert E.launch_counts == {"edge_flux": 0, "edge_coeff": 0,
-                               "edge_apply": 0}
+                               "edge_apply": 0, "tangent_cell": 0,
+                               "tangent_reach": 0}
     sf = s["t"][0].clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-mode"):
         E.edge_fluxes(et, sf, s["t"][1], kh, True)

@@ -13,7 +13,11 @@ cannot hold.  The sharded RHS (2 gloo ranks on the card, 32,768 cells):
 dY through edge_flux bitwise its plain path's, the coefficient path's dY
 and the hand J·v (edge_coeff, edge_apply) within 1e-6 scaled.  The
 captured programs (WindowGraph, IntervalGraph, the -g driver's
-SplitGraph) bitwise their eager loops.  The interval graph's stamps
+SplitGraph) bitwise their eager loops.  The tangent factor kernels
+(tangent_cell, tangent_reach) bitwise their plain version on every mesh
+variant with BCs and tied states, rhs.linearize's dY and J·v bitwise
+with either, one device launch of each a linearize call; their wrappers
+refuse what they cannot take.  The interval graph's stamps
 (``%globaltimer``): a pair around a sleep against CUDA events; only with
 tracing on, the captured pieces unchanged.
 """
@@ -151,6 +155,145 @@ def test_wrappers_refuse_bad_inputs(setup):
         E.edge_flux(strided, s["gw"], s["kh"], et, True)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         E.edge_flux(s["sf"].cpu(), s["gw"], s["kh"], et, True)
+
+
+# the tangent factor kernels (csrc/edge_tangent.cu) on every mesh variant
+TANGENT_VARIANTS = ("plain", "open", "rcm", "lake", "branched")
+
+
+def _tangent_case(variant, seed):
+    """A float32 linearization's primal on the card: the *variant* mesh
+    (48 x 32) with BCs (``torch_variants.with_bc``), the forcing and the
+    state of ``mega_inputs`` (exact ties: dry cells, empty unsaturated
+    layers, water tables at the surface, empty reaches).  Returns (device
+    mesh, forcing, state, tangent, close_boundary, the primal's saved
+    intermediates)."""
+    from shud_tpu_torch.core import rhs as R
+    from shud_tpu_torch.core.device import to_torch
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.core.state import ForcingSlice
+    from torch_variants import make_project, mega_inputs, with_bc
+
+    inp = make_project("torch", variant, 48, 32)
+    md = with_bc(build_mesh(inp))
+    dev = torch.device("cuda")
+    dm = to_torch(md, torch.float32, dev)
+    fs, y, v = mega_inputs(md, seed)
+    fs = ForcingSlice(**{k: torch.as_tensor(a, device=dev)
+                         for k, a in fs.items()})
+    y, v = torch.as_tensor(y, device=dev), torch.as_tensor(v, device=dev)
+    cb = bool(inp.control.close_boundary)
+    _, _, saved = R._rhs(dm, fs, y, cb, False, [])
+    return dm, fs, y, v, cb, saved
+
+
+def _same_entries(a, b) -> bool:
+    """Equal entry by entry (NaN where the other is NaN)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(((a == b) | (a.isnan() & b.isnan())).all()))
+
+
+def _parted(got: dict, ref: dict) -> dict:
+    """The entries of *got* that part from *ref*: count and largest gap."""
+    return {k: (int((got[k] != ref[k]).sum()),
+                float((got[k].double() - ref[k].double()).abs().max()))
+            for k in ref if not _same_entries(got[k], ref[k])}
+
+
+@pytest.mark.parametrize("variant", TANGENT_VARIANTS)
+def test_tangent_factors_match_plain_bitwise(variant):
+    """Every factor of the two kernels is its plain version's
+    (rhs._tangent_factors, PyTorch on the card) to the last bit, on states
+    with exact ties, two seeds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import rhs as R
+
+    for seed in (5, 6):
+        dm, fs, _, _, _, saved = _tangent_case(variant, seed)
+        got = R._tangent_factors_kernel(dm, fs, saved)
+        ref = R._tangent_factors(dm, fs, saved)
+        torch.cuda.synchronize()
+        assert set(got) == set(ref) == set(R._FACTORS)
+        assert not _parted(got, ref), (seed, _parted(got, ref))
+
+
+@pytest.mark.parametrize("variant", TANGENT_VARIANTS)
+def test_linearize_tangent_kernels_match_plain_bitwise(variant,
+                                                       monkeypatch):
+    """rhs.linearize with the factor kernels against the same with the
+    factors' plain version: dY and J·v bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, y, v, cb, _ = _tangent_case(variant, 5)
+    dy_k, jvp_k = R.linearize(dm, fs, 0.0, y, cb)
+    jv_k = jvp_k(v)
+    monkeypatch.setattr(R, "_tangent_factors_kernel", R._tangent_factors)
+    dy_p, jvp_p = R.linearize(dm, fs, 0.0, y, cb)
+    jv_p = jvp_p(v)
+    torch.cuda.synchronize()
+    assert torch.equal(dy_k, dy_p)
+    assert _same_entries(jv_k, jv_p), _parted({"jv": jv_k}, {"jv": jv_p})
+    assert bool(torch.isfinite(jv_k).all())
+
+
+def test_tangent_kernels_one_launch_per_linearize():
+    """One device launch of each factor kernel a linearize call, none a
+    J·v (the device counters and the wrappers' counts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, y, v, cb, _ = _tangent_case("lake", 5)
+    torch.cuda.synchronize()
+    E.reset_launch_counts()
+    _, jvp = R.linearize(dm, fs, 0.0, y, cb)
+    for _ in range(3):
+        jvp(v)
+    torch.cuda.synchronize()
+    want = {"edge_flux": 0, "edge_coeff": 1, "edge_apply": 3,
+            "tangent_cell": 1, "tangent_reach": 1}
+    assert E.device_launch_counts() == want
+    assert E.launch_counts == want
+
+
+def test_tangent_wrappers_refuse_bad_inputs():
+    """A CUDA input the kernels cannot take raises (no fallback): another
+    dtype, length, device or layout; nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, _, _, _, saved = _tangent_case("plain", 5)
+    cell, flags, get = R._tangent_cell_inputs(dm, fs, saved)
+
+    def swap(fields, name, t):
+        return [(k, t if k == name else x) for k, x in fields]
+
+    n0 = dict(E.launch_counts)
+    with pytest.raises(ValueError, match="float32"):
+        E.tangent_cell(swap(cell, "beta", dm.beta.double()), flags, False)
+    with pytest.raises(ValueError, match="shape"):
+        E.tangent_cell(swap(cell, "sy", dm.sy[:-1]), flags, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.stack([dm.area, dm.area], dim=1)[:, 0]
+        E.tangent_cell(swap(cell, "area", strided), flags, False)
+    with pytest.raises(ValueError, match="on cpu"):
+        E.tangent_cell(swap(cell, "area", dm.area.cpu()), flags, False)
+    with pytest.raises(ValueError, match="int64"):
+        E.tangent_cell(cell, swap(flags, "i_bc", dm.i_bc.int()), False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.tangent_cell([(k, t.cpu()) for k, t in cell],
+                       [(k, t.cpu()) for k, t in flags], False)
+    ns, nr = dm.num_seg, dm.num_riv
+    floats = [("r_csa", get("r_csa"), nr + 1)]
+    with pytest.raises(ValueError, match="shape"):
+        E.tangent_reach(floats, [], ns, nr)
+    assert E.launch_counts == n0
 
 
 @pytest.fixture(scope="module", params=("plain", "lake", "branched"))
@@ -355,8 +498,10 @@ def test_sharded_rhs_with_kernels():
         for key in ("dy_lin", "jv"):
             ref, got = p[key].astype(np.float64), k[key].astype(np.float64)
             assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), key
+        # the sharded driver builds its own factors (ShardRHS._tangent)
         assert k["launches"] == {"edge_flux": 1, "edge_coeff": 1,
-                                 "edge_apply": 1}
+                                 "edge_apply": 1, "tangent_cell": 0,
+                                 "tangent_reach": 0}
         assert p["launches"] == dict.fromkeys(k["launches"], 0)
 
 

@@ -193,3 +193,108 @@ def test_linearize_refuses_exact_parity():
     fs_t = TFS(**{k: torch.tensor(a) for k, a in fs.items()})
     with pytest.raises(ValueError, match="exact_parity"):
         TR.linearize(dm, fs_t, 0.0, torch.tensor(y), cb, exact_parity=True)
+
+
+@pytest.mark.parametrize("prec", sorted(DTYPES))
+@pytest.mark.parametrize("variant", ("bc", "ties", "branched"))
+def test_tangent_takes_plain_route_off_the_card(variant, prec, monkeypatch):
+    """On the CPU, in float32 and float64, ``_tangent`` builds its factors
+    with the plain version (``_tangent_factors``): the kernel route is not
+    reached and no kernel is counted.  The route's inputs
+    (``_tangent_kernel_inputs``) are what the kernels' wrappers take:
+    each 1-D, contiguous, of its length and dtype, on one device."""
+    from shud_tpu_torch.core import edge as E
+
+    md_j, md_t, cb, fs, y, v = _lin_case(variant)
+    td = DTYPES[prec][1]
+    dm = to_torch(md_t, td, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a, dtype=td) for k, a in fs.items()})
+    yt, vt = torch.tensor(y, dtype=td), torch.tensor(v, dtype=td)
+
+    def refuse(*args):
+        raise AssertionError("the kernel route on the CPU")
+
+    monkeypatch.setattr(TR, "_tangent_factors_kernel", refuse)
+    E.reset_launch_counts()
+    _, jvp = TR.linearize(dm, fs_t, 0.0, yt, cb)
+    got = jvp(vt)
+    assert set(E.launch_counts.values()) == {0}
+    ref = torch.func.jvp(lambda yy: TR.rhs(dm, fs_t, 0.0, yy, cb), (yt,),
+                         (vt,))[1]
+    assert scaled_err(ref.numpy(), got.numpy()) <= (
+        1e-12 if prec == "f64" else 2e-6)
+
+    _, _, saved = TR._rhs(dm, fs_t, yt, cb, False, [])
+    cell, flags, get = TR._tangent_cell_inputs(dm, fs_t, saved)
+    ne = dm.num_ele
+    assert [k for k, _ in cell] == list(TR._TANGENT_CELL_FIELDS)
+    E._check_fields([(k, t, ne) for k, t in cell], td, yt.device)
+    E._check_fields([(k, t, ne) for k, t in flags], torch.int64, yt.device)
+    rows = dict.fromkeys(TR._TANGENT_CELL_OUT, torch.zeros(ne, dtype=td))
+    floats, reach_flags = TR._tangent_reach_inputs(dm, get, rows)
+    assert [k for k, *_ in floats] == [
+        k for group in TR._TANGENT_REACH_FIELDS for k in group]
+    E._check_fields(floats, td, yt.device)
+    E._check_fields(reach_flags, torch.int64, yt.device)
+    assert set(TR._tangent_factors(dm, fs_t, saved)) == set(TR._FACTORS)
+
+
+def _vertical_fluxes(m, fs, sf, us, gw):
+    """The cell's vertical fluxes as ``_rhs`` computes them (lake cells
+    0), and its cell update: what ``_vertical_lin`` and
+    ``_cell_update_lin`` differentiate."""
+    cu = TR.update_element(m, sf, us, gw)
+    if m.num_lake > 0:
+        cu = TR.lake_cell_update(m, cu)
+    es, eu, eg, tu, tg, _, _ = TR.et_flux(m, fs, sf, us, gw, cu.satn)
+    qi, qex = TR.flux_infiltration(m, cu, sf, us, gw, fs.net_prcp)
+    out = dict(qi=qi * fs.fu_surf, qx=qex * fs.fu_surf,
+               qr=TR.flux_recharge(m, cu, us, gw) * fs.fu_sub,
+               es=es, eu=eu, eg=eg, tu=tu, tg=tg)
+    if m.num_lake > 0:
+        out = {k: torch.where(m.i_lake > 0, 0.0, a) for k, a in out.items()}
+    return out, cu
+
+
+@pytest.mark.parametrize("variant", ("plain", "lake"))
+def test_split_driver_cell_factors_unchanged(variant):
+    """``_cell_update_lin`` and ``_vertical_lin``, which the -g driver
+    (``driver/uncoupled.py``) calls itself in float64, keep their
+    signatures and give each partial derivative of the cell update and of
+    the vertical fluxes: torch.func.jvp along each of sf, us, gw, scaled
+    1e-12 (cell-local, so a unit tangent gives every cell's partial)."""
+    import inspect
+
+    assert list(inspect.signature(TR._cell_update_lin).parameters) == [
+        "m", "sf", "us", "gw"]
+    assert list(inspect.signature(TR._vertical_lin).parameters) == [
+        "m", "fs", "sf", "us", "gw", "cu", "ibeta", "c"]
+    md_j, md_t, cb, fs, y, _ = _lin_case(variant)
+    dm = to_torch(md_t, torch.float64, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a) for k, a in fs.items()})
+    ne = dm.num_ele
+    yt = torch.tensor(y)
+    sf, us, gw = yt[:ne], yt[ne:2 * ne], yt[2 * ne:3 * ne]
+    cu = TR.update_element(dm, sf, us, gw)
+    if dm.num_lake > 0:
+        cu = TR.lake_cell_update(dm, cu)
+    ibeta = TR.et_flux(dm, fs_t, sf, us, gw, cu.satn)[-1]
+    c = TR._cell_update_lin(dm, sf, us, gw)
+    vl = TR._vertical_lin(dm, fs_t, sf, us, gw, cu, ibeta, c)
+    one, zero = torch.ones_like(sf), torch.zeros_like(sf)
+    cell_keys = {"eff_kh": "kh", "deficit": "def", "satn": "sn",
+                 "sat_kr": "kr", "theta": "th"}
+    for x, t in (("sf", (one, zero, zero)), ("us", (zero, one, zero)),
+                 ("gw", (zero, zero, one))):
+        (fl, cut), (tfl, tcu) = torch.func.jvp(
+            lambda a, b, g: _vertical_fluxes(dm, fs_t, a, b, g),
+            (sf, us, gw), t)
+        for k, d in tfl.items():
+            assert scaled_err(d.numpy(), vl[k][x].numpy()) <= 1e-12, (k, x)
+        for field, key in cell_keys.items():
+            name = f"{key}_{x}"
+            if name in c:
+                assert scaled_err(getattr(tcu, field).numpy(),
+                                  c[name].numpy()) <= 1e-12, name
+            else:
+                assert not bool(getattr(tcu, field).abs().max()), name
