@@ -23,6 +23,13 @@ returned unchanged (``unchanged``), half of the cells left at their state
 of the interval's start (``half``), one cell's groundwater altered
 (``altered``); one replay each, judged against the reference by the
 cell's limits as a run judges, one JSON line a fault.
+
+The watershed, the program and the reference are the cell's own, those
+its configuration names (``harness.hooks``), as in a run: a cell's limits
+come from its own generator, program and reference.  The control calls
+the reference's ``driver.simulate`` with ``round_inputs``; the faults
+are planted on the program's ``sim`` (its ``advance_interval`` and
+``bdf.y``).
 """
 
 from __future__ import annotations
@@ -85,28 +92,31 @@ def main() -> int:
     import torch
 
     from portbench import compare, gen, harness
-    from portbench.program import Program
-    from portbench.reference import driver, project
 
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     cell = harness.load_cell(ROOT, spec, args.workload)
     harness.check_device(cell["chips"])
     cfg, traffic = cell["config"], cell["traffic"]
+    hooks = cell["hooks"]
     interval = float(traffic["interval_min"])
     where = str(ROOT / "build")
 
     def orders(text):
         return [int(s) for s in text.split(",") if s]
 
+    def make_raw(order=None):
+        return gen.make_raw(cfg, traffic, order, hooks.generator)
+
     def reference(raw, **kw):
-        return driver.simulate(gen.to_input(raw, project, where), interval,
-                               "cuda", **kw)
+        return hooks.ref("driver").simulate(
+            gen.to_input(raw, hooks.ref("project"), where), interval, "cuda",
+            **kw)
 
     rows = []
     for order in orders(args.orderings):
-        raw = gen.make_raw(cfg, traffic, order)
+        raw = make_raw(order)
         t0 = time.perf_counter()
-        prog = Program(raw, cfg, traffic, "cuda", where)
+        prog = hooks.program(raw, cfg, traffic, "cuda", where)
         prog.snapshot()
         got = [prog.interval() for _ in range(prog.n_intervals)]
         nfe = prog.nfe
@@ -121,7 +131,7 @@ def main() -> int:
                      "program_s": t1 - t0, "reference_s": t2 - t1})
         print(json.dumps(rows[-1]), flush=True)
     for order in orders(args.control_orderings):
-        raw = gen.make_raw(cfg, traffic, order)
+        raw = make_raw(order)
         ref = reference(raw)
         ctl = reference(raw, round_inputs=torch.bfloat16)
         numbers, _ = compare.gaps(ctl, ref, cfg["control"])
@@ -129,11 +139,11 @@ def main() -> int:
         print(json.dumps(rows[-1]), flush=True)
     faults = [f for f in args.faults.split(",") if f]
     if faults:
-        raw = gen.make_raw(cfg, traffic)
+        raw = make_raw()
         ref = reference(raw)
         ne = len(raw["tri"])
         for name in faults:
-            prog = Program(raw, cfg, traffic, "cuda", where)
+            prog = hooks.program(raw, cfg, traffic, "cuda", where)
             plant(prog.sim, FAULTS[name], ne)
             prog.snapshot()
             got = [prog.interval() for _ in range(prog.n_intervals)]

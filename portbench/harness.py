@@ -7,19 +7,24 @@ per-layer metric is a file of its own, found by the name that
 configuration's ``file``), ``traffic/<traffic>.json``,
 ``limits/<workload>.json`` (the comparison's limits of the cell) and
 ``metrics/<metric>.py`` (a reader: ``read(probe)`` returns the metric's
-value, or None where it finds nothing to read).
+value, or None where it finds nothing to read).  A configuration may also
+name its own input generator, program and reference (``hooks``): every
+step of a run, and ``calibrate.py``, takes them from there.
 """
 
 from __future__ import annotations
 
 import functools
 import gc
+import importlib
 import importlib.util
 import json
+import re
 import statistics
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -36,9 +41,93 @@ class Refused(Exception):
     """The run cannot be made here; nothing is printed on stdout."""
 
 
+OWN = Path(__file__).resolve().parent
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+# what a configuration's ``generator``, ``program`` and ``reference`` keys
+# name, and the names the keys take when the configuration leaves them out
+DEFAULT_HOOKS = {"generator": "hillslope", "program": "program",
+                 "reference": "reference"}
+
+
+class Hooks(NamedTuple):
+    """A configuration's own parts.  ``generator``: a module whose
+    ``make(config, traffic)`` returns the watershed before its cells are
+    ordered (``gen.make_raw``).  ``program``: the class of the system under
+    test, with ``program.py``'s interface.  ``reference``: a package with
+    ``reference/``'s layout; ``ref(name)`` is its module *name*."""
+
+    generator: object
+    program: type
+    reference: object
+
+    def ref(self, name: str):
+        return importlib.import_module(f"{self.reference.__name__}.{name}")
+
+
+def hook_path(bench: Path, kind: str, name: str) -> Path:
+    """Where the *kind* hook *name* lives under *bench*:
+    ``generators/<name>.py``; ``programs/<name>.py`` (the program named
+    ``program`` is ``program.py``); the package directory ``<name>/``."""
+    if kind == "generator":
+        return bench / "generators" / f"{name}.py"
+    if kind == "program":
+        return bench / ("program.py" if name == "program"
+                        else f"programs/{name}.py")
+    return bench / name
+
+
+def hooks(bench: Path, config: dict) -> Hooks:
+    """The generator, program and reference that *config* names, found
+    under *bench*; where it names none, this directory's default
+    (``DEFAULT_HOOKS``).  Refused, naming the missing file, where one is
+    not there."""
+    found = {}
+    for kind, default in DEFAULT_HOOKS.items():
+        name = config.get(kind, default)
+        path = hook_path(bench if kind in config else OWN, kind, name)
+        if not (isinstance(name, str) and NAME.fullmatch(name)
+                and (path / "__init__.py" if kind == "reference"
+                     else path).is_file()):
+            raise Refused(f"the configuration {config.get('name')!r} names "
+                          f"the {kind} {name!r}: no {path}")
+        found[kind] = load(path)
+    return Hooks(found["generator"], found["program"].Program,
+                 found["reference"])
+
+
+def load(path: Path):
+    """The module at *path*, a ``.py`` file or a package's directory,
+    loaded once a process.  One of this directory whose path is made of
+    identifiers is imported by its name (``portbench.reference``): the
+    module that the benchmark's own imports give, whose modules import
+    each other by that name.  Any other is loaded from its file under a
+    name made from its path."""
+    path = path.resolve()
+    parts = (path.relative_to(OWN).with_suffix("").parts
+             if path.is_relative_to(OWN) else ())
+    if parts and all(p.isidentifier() for p in parts):
+        return importlib.import_module(".".join(("portbench",) + parts))
+    name = "portbench_file_" + "".join(
+        c if c.isalnum() else "_" for c in str(path))
+    if name in sys.modules:
+        return sys.modules[name]
+    package = path.is_dir()
+    spec = importlib.util.spec_from_file_location(
+        name, path / "__init__.py" if package else path,
+        submodule_search_locations=[str(path)] if package else None)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[name]
+        raise
+    return mod
+
+
 def load_cell(root: Path, spec: dict, workload: str) -> dict:
     """The cell *workload* of *spec*: its entry, configuration, traffic,
-    limits and per-layer metrics."""
+    limits, per-layer metrics and the configuration's ``hooks``."""
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
         raise Refused(f"no workload {workload!r} in BENCHMARK.json")
@@ -47,9 +136,10 @@ def load_cell(root: Path, spec: dict, workload: str) -> dict:
     bench = root / spec["paths"][0]
     reports = {m["name"] for m in spec["end_to_end"]
                if cell["name"] in m.get("workloads", [cell["name"]])}
+    config = json.loads((root / entry["file"]).read_text())
     return {
         "name": workload, "chips": cell["chips"],
-        "config": json.loads((root / entry["file"]).read_text()),
+        "config": config, "hooks": hooks(bench, config),
         "traffic": json.loads(
             (bench / "traffic" / f"{cell['traffic']}.json").read_text()),
         "limits": json.loads(
@@ -65,13 +155,7 @@ def load_cell(root: Path, spec: dict, workload: str) -> dict:
 
 def reader(bench: Path, name: str):
     """The module ``metrics/<name>.py``."""
-    path = bench / "metrics" / f"{name}.py"
-    mod_name = "portbench_metric_" + "".join(
-        c if c.isalnum() else "_" for c in name)
-    spec = importlib.util.spec_from_file_location(mod_name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load(bench / "metrics" / f"{name}.py")
 
 
 def measure_window(prog, seconds: float, rng) -> dict:
@@ -192,7 +276,8 @@ class Probe:
     @functools.cached_property
     def work(self) -> dict:
         width = 4 if self.cell["config"]["float"] == "float32" else 8
-        return work.evaluation_work(self.raw, width)
+        return work.evaluation_work(self.raw, width,
+                                    self.cell["hooks"].reference)
 
     @functools.cached_property
     def _functions(self):
@@ -301,12 +386,12 @@ def per_layer(cell: dict, probe: Probe) -> dict:
 
 
 def check(raw: dict, cell: dict, sample: list, device, where: str) -> tuple:
-    """The reference's run of *raw* against the program's replay
+    """The cell's reference's run of *raw* against the program's replay
     *sample*: (the numbers, the intervals over a limit)."""
-    from portbench.reference import driver, project as ref_project
-
-    ref = driver.simulate(gen.to_input(raw, ref_project, where),
-                          float(cell["traffic"]["interval_min"]), device)
+    h = cell["hooks"]
+    ref = h.ref("driver").simulate(gen.to_input(raw, h.ref("project"), where),
+                                   float(cell["traffic"]["interval_min"]),
+                                   device)
     numbers, per = compare.gaps(sample, ref, cell["config"]["control"])
     return numbers, compare.failed_intervals(per, cell["limits"])
 
@@ -329,19 +414,19 @@ def run_cell(root: Path, spec: dict, workload: str, seed: int,
     """One run on the card; returns the result line (a dict)."""
     import torch
 
-    from portbench.program import Program
-
     torch.set_num_threads(1)
     cell = load_cell(root, spec, workload)
     dev_info = check_device(cell["chips"])
-    raw = gen.make_raw(cell["config"], cell["traffic"])
+    raw = gen.make_raw(cell["config"], cell["traffic"],
+                       generator=cell["hooks"].generator)
     where = str(root / "build")
     torch.cuda.reset_peak_memory_stats()
     if traced:
         # the profiler's CUDA tracing started before the interval graph is
         # instantiated, so that the graph's kernels are traced
         trace.start_tracing()
-    prog = Program(raw, cell["config"], cell["traffic"], "cuda", where)
+    prog = cell["hooks"].program(raw, cell["config"], cell["traffic"], "cuda",
+                                 where)
     prog.snapshot()
     prog.interval()  # builds the interval graph; warms the fetch
     prog.restore()

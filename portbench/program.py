@@ -6,6 +6,42 @@ with its history, the buckets, the time), and replays the cell's period
 from it interval by interval, as ``run_project_fast`` does: one
 ``advance_interval`` call, then the interval's means, stages and state
 fetched to the host.  No output file is written.
+
+It is the program of every configuration that names none.  A
+configuration's own (``programs/<name>.py``, named by its ``program``
+key, ``harness.hooks``) is a class ``Program`` built as
+``Program(raw, config, traffic, device, where)`` from ``gen.make_raw``'s
+watershed, and offers what the harness, its ``Probe`` and ``spans.py``
+read of this one:
+
+- ``n_intervals``, ``interval_min``: the replayed period's intervals and
+  their minutes;
+- ``snapshot()``, ``restore()``: keep the start state, and go back to it
+  before each replay; ``interval(after_advance=None)``: one interval,
+  returning ``{"t", "y", "q_riv_down"}`` on the host as the reference's
+  ``driver.simulate`` does (``compare.py`` reads them), and calling
+  *after_advance* between the interval's advance and that fetch (the
+  device time's CUDA events end there);
+- ``nfe``: the right-hand-side evaluations so far; ``graph_stats()``: the
+  interval graph's counters, or None; ``solver_functions()``: the
+  solver's ``(rhs(t, y), lin(t, y))`` with ``lin`` returning ``(_,
+  jvp(v))``, or None;
+- ``sim.bdf`` (its ``y``), ``sim.t`` and ``sim.interval``: the solver
+  state and time after an interval, and the interval graph or None
+  (``spans.py`` builds two more of its type, ``type(g)(sim, g.w_max,
+  g.capture)``, and reads ``stats``, ``reset_phases()``, ``phases()``
+  and ``close()``; ``calibrate.py --faults`` also wraps
+  ``sim.advance_interval`` and replaces ``sim.bdf``);
+- ``close()``: free the device memory before the reference runs.
+
+A program without an interval graph (``sim.interval``, ``graph_stats()``
+and ``solver_functions()`` None) leaves these readers with nothing to
+read: ``graph.build_s``, ``rhs_roofline``, ``jv_roofline`` and every
+reader of ``spans.py`` (``driver.host_us_per_interval``,
+``setup.create_s``, ``setup.first_interval_s``, ``solver.newton_us``,
+``window.head_us``, ``window.tail_us``).  ``device.*``,
+``graph.launches_per_nfe`` and ``solver.nfe_per_sim_day`` read every
+program.
 """
 
 from __future__ import annotations

@@ -13,6 +13,8 @@ edge paths, and whatever later implements them, are held to one count.
 
 from __future__ import annotations
 
+import importlib
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -63,36 +65,38 @@ class _CountOps(TorchDispatchMode):
         return out
 
 
-def evaluation_work(raw: dict, float_bytes: int) -> dict:
+def evaluation_work(raw: dict, float_bytes: int, reference=None) -> dict:
     """``{"rhs": (bytes, ops), "jv": (bytes, ops)}`` of one evaluation on
-    the mesh of *raw* (``gen.make_raw``), at *float_bytes* an entry."""
+    the mesh of *raw* (``gen.make_raw``), at *float_bytes* an entry, as
+    the package *reference* (the cell's reference, ``harness.hooks``; by
+    default ``portbench.reference``) evaluates it: its modules
+    ``project``, ``mesh``, ``forcing``, ``device``, ``init``,
+    ``landsurface``, ``driver`` (``window_forcing``) and ``rhs``
+    (``_rhs``)."""
     from portbench import gen
-    from portbench.reference import project
-    from portbench.reference.device import to_torch
-    from portbench.reference.driver import window_forcing
-    from portbench.reference.forcing import build_forcing
-    from portbench.reference.init import initial_buckets, initial_state
-    from portbench.reference.landsurface import BucketState, CalibScalars
-    from portbench.reference.mesh import build_mesh
-    from portbench.reference.rhs import _rhs
 
-    inp = gen.to_input(raw, project, ".")
-    md = build_mesh(inp)
-    fr = build_forcing(inp, md)
-    dm = to_torch(md, torch.float64, "cpu")
-    cal = CalibScalars(*[v.double() for v in fr.cal])
-    ic, snow = initial_buckets(inp, md)
-    fs, _ = window_forcing(dm, BucketState(torch.as_tensor(ic),
-                                              torch.as_tensor(snow)),
-                              fr, cal, (0, 0, 0),
-                              float(inp.control.solver_step), torch.float64,
-                              "cpu")
-    y = torch.as_tensor(initial_state(inp, md))
+    pkg = "portbench.reference" if reference is None else reference.__name__
+
+    def ref(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    ls = ref("landsurface")
+    inp = gen.to_input(raw, ref("project"), ".")
+    md = ref("mesh").build_mesh(inp)
+    fr = ref("forcing").build_forcing(inp, md)
+    dm = ref("device").to_torch(md, torch.float64, "cpu")
+    cal = ls.CalibScalars(*[v.double() for v in fr.cal])
+    init = ref("init")
+    ic, snow = init.initial_buckets(inp, md)
+    fs, _ = ref("driver").window_forcing(
+        dm, ls.BucketState(torch.as_tensor(ic), torch.as_tensor(snow)), fr,
+        cal, (0, 0, 0), float(inp.control.solver_step), torch.float64, "cpu")
+    y = torch.as_tensor(init.initial_state(inp, md))
     seen = {}
     counter = _CountOps()
     with torch.no_grad(), counter:
-        _rhs(_Recorder(dm, seen), _Recorder(fs, seen), y,
-             bool(inp.control.close_boundary))
+        ref("rhs")._rhs(_Recorder(dm, seen), _Recorder(fs, seen), y,
+                        bool(inp.control.close_boundary))
     fields = sum(v.numel() for v in seen.values())
     n = y.numel()
     rhs_bytes = float_bytes * (fields + 2 * n)
