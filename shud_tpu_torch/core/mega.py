@@ -51,6 +51,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from shud_tpu_torch import trace
 from shud_tpu_torch.config import EPSILON, GRAV, MAXYSURF, ZERO
 from shud_tpu_torch.core.device import _fixed_width_lists
 from shud_tpu_torch.core.cuda_build import load_library
@@ -243,8 +244,13 @@ def build_mega_tables(md, max_cells: int = MAX_CELLS) -> "MegaTables | None":
                   riv_to_lake=empty_i,
                   lake_zmin=torch.zeros(0), bathy_y=torch.zeros((0, 1)),
                   bathy_a=torch.zeros((0, 1)), lake_w=torch.zeros(0))
-    return MegaTables(**{k: (v.contiguous() if isinstance(v, torch.Tensor)
-                             else v) for k, v in kw.items()})
+    t = MegaTables(**{k: (v.contiguous() if isinstance(v, torch.Tensor)
+                          else v) for k, v in kw.items()})
+    dims = _kernel_dims(t)
+    for name, value in (("lakes", nl), ("lake_cells", int((i_lake > 0).sum())),
+                        ("kel", dims[7]), ("krl", dims[8]), ("kup", dims[6])):
+        trace.count(f"shud.mega.{name}", value)
+    return t
 
 
 def _rows(n: int, min_rows: int = 8) -> int:
@@ -314,13 +320,13 @@ def pack_forcing(tables: MegaTables, fs) -> MegaForcing:
 
 
 def _weighted_list_sum(values, lists, w):
-    """``sum_k w * values[lists[:, k]]`` in ascending order."""
+    """``sum_k w * values[lists[:, k]]``: one gather, one product, one
+    row sum, whatever the lists' width (a lake's cells, thousands on a
+    deployment's mesh), in the sum's own order as JAX's matrix product
+    (``forcing_to_blocks``) and ``core/rhs.py``'s ``gather_sum`` have
+    theirs."""
     padded = torch.cat([values, values.new_zeros(1)])
-    g = padded[lists.long()] * w
-    acc = values.new_zeros(lists.shape[0])
-    for k in range(lists.shape[1]):
-        acc = acc + g[:, k]
-    return acc
+    return (padded[lists.long()] * w).sum(dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1258,10 +1264,13 @@ class _LaunchState:
     """What one MegaTables on the card keeps for its kernel calls, made at
     the first call: the library's entry points, one scratch buffer (the
     calls run in order on torch's current stream, so they can share it),
-    each kernel's dims array (the grid from launch_plan last), and the
-    pointer array of the forcing bound last (tables, forcing, state,
-    tangent, output, scratch, launch counter), whose state, tangent,
-    output and counter slots each call fills in.
+    each kernel's dims array (the grid from launch_plan last), the pointer
+    array of the forcing bound last (tables, forcing, state, tangent,
+    output, scratch, launch counter, stage C's clock), whose state,
+    tangent, output, counter and clock slots each call fills in, and on a
+    lake mesh stage C's clock: ``lake_ns`` [3, Nl] int64, a row per kernel
+    (``launch_counts``' order), each lake's nanoseconds summed over the
+    calls made while ``trace`` is on (``lake_stage_ns``).
 
     A captured window (``solver/graph.py``) keeps the pointers of its
     capture: the forcing it binds is the window's static buffers, which
@@ -1286,13 +1295,19 @@ class _LaunchState:
                 self.dims[name, cb] = (ctypes.c_int * 12)(*dims, cb, grid)
         self.forcing = None
         self.ptrs = None
+        self.lake_ns = (torch.zeros((len(launch_counts), t.nl),
+                                    dtype=torch.int64, device=t.cell_f.device)
+                        if t.nl > 0 else None)
+        self.clock = {name: (0 if self.lake_ns is None
+                             else self.lake_ns[k].data_ptr())
+                      for k, name in enumerate(launch_counts)}
 
     def bind(self, t: MegaTables, forcing: MegaForcing) -> None:
         _check_forcing(t, forcing)
         tensors = [getattr(t, n) for n in _KERNEL_TABLES] + list(forcing)
-        self.ptrs = (ctypes.c_void_p * 25)(
+        self.ptrs = (ctypes.c_void_p * 26)(
             *[v.data_ptr() for v in tensors], 0, 0, 0, self.scratch.data_ptr(),
-            0)
+            0, 0)
         self.forcing = forcing
 
 
@@ -1305,7 +1320,8 @@ def _launch_state(t: MegaTables) -> _LaunchState:
 
 def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
     """One kernel call outside a torch.func transform: the cached pointers
-    and scratch, three pointers set, one C call."""
+    and scratch, three pointers set (and stage C's clock while ``trace`` is
+    on), one C call."""
     st = _launch_state(t)
     if st.forcing is not forcing:
         st.bind(t, forcing)
@@ -1313,6 +1329,7 @@ def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
     p = st.ptrs
     p[20], p[21], p[22] = y.data_ptr(), ty.data_ptr(), out.data_ptr()
     p[24] = _counts.pointer(name, y.device)
+    p[25] = st.clock[name] if trace.enabled() else 0
     err = st.fns[name](p, st.dims[name, bool(close_boundary)],
                        torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
@@ -1323,12 +1340,12 @@ def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
 
 def _launch(name: str, y, ty, tensors, dims, n_out):
     """One kernel call from a dispatcher op (inside a torch.func
-    transform): pointers and scratch made for the call."""
+    transform): pointers and scratch made for the call; stage C untimed."""
     lib = load_library()
     out = y.new_empty(n_out)
     scratch = y.new_empty(lib.shud_mega_scratch_floats(*dims[:4]))
     ptrs = [t.data_ptr() for t in (*tensors, y, ty, out, scratch)]
-    ptrs.append(_counts.pointer(name, y.device))
+    ptrs += [_counts.pointer(name, y.device), 0]
     err = getattr(lib, f"shud_{name}")(
         (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * 12)(*dims),
         torch.cuda.current_stream(y.device).cuda_stream)
@@ -1336,6 +1353,27 @@ def _launch(name: str, y, ty, tensors, dims, n_out):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
     return out
+
+
+def lake_stage_ns(tables) -> "dict | None":
+    """Stage C's clock of *tables* on the card: for each kernel
+    (``launch_counts``' names) each lake's nanoseconds from the second
+    grid barrier to its last write, summed over the calls made while
+    ``trace`` is on since the last ``reset_lake_stage`` (a captured call
+    keeps the clock of its capture); None on a lake-free mesh or before
+    the tables' first call on the card."""
+    st = tables.__dict__.get("_launch")
+    if st is None or st.lake_ns is None:
+        return None
+    rows = st.lake_ns.tolist()
+    return {name: rows[k] for k, name in enumerate(launch_counts)}
+
+
+def reset_lake_stage(tables) -> None:
+    """Zero stage C's clock of *tables* (in stream order)."""
+    st = tables.__dict__.get("_launch")
+    if st is not None and st.lake_ns is not None:
+        st.lake_ns.zero_()
 
 
 # Inside torch.func transforms the launches are dispatcher ops

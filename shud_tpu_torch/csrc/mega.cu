@@ -49,7 +49,10 @@
 //      sums its segment and upstream lists and assembles;
 //   -- on lake meshes only, a second grid barrier --
 //   C  one thread per lake: the bank-edge and inflow sums, the bathymetry
-//      scan and dStage.
+//      scan and dStage; given a clock (lake_ns, mega.py's lake_stage_ns,
+//      passed only while shud_tpu_torch.trace is on), each lake's thread
+//      adds its nanoseconds from the barrier to its last write, and
+//      without one it reads no clock.
 // The assembly writes dY (or J.v), or with D the 13 cell, 4 reach and 6
 // lake diagnostic fields (mega.py DIAG_CELL, DIAG_RIV, DIAG_LAKE); the
 // stages before it are the same code for all three.
@@ -125,6 +128,7 @@ struct Args {
   const float* y; const float* ty;
   float* out; float* s;
   unsigned long long* count;  // mega.py's device launch counter
+  long long* lake_ns;  // stage C's nanoseconds per lake, or null: no clock
   int ne, nr, ns, nl, kc, kr, kup, kel, krl, kb, close_boundary;
 
   __device__ float cf(int f, int i) const { return cell_f[f * ne + i]; }
@@ -903,6 +907,15 @@ __device__ __forceinline__ void reach_assembly(const Args& a, int r,
   }
 }
 
+// the card's nanosecond clock (%globaltimer, the interval graph's stamps'
+// clock); the memory clobber keeps the stage's loads and stores between
+// two readings
+__device__ __forceinline__ long long global_ns() {
+  long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now) : : "memory");
+  return now;
+}
+
 // lake bucket dStage (MD_f.cpp:44-47,180-191; Lake.cpp:toparea), one
 // thread per lake walking its bank-edge and inflow-reach lists
 template <bool T, bool D>
@@ -1025,11 +1038,17 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks) fused(Args a) {
   } else if (is_reach) {
     reach_assembly<T, D>(a, t - ne, own);
   }
-  // stage C: the lakes read stage B's bank-edge fluxes
+  // stage C: the lakes read stage B's bank-edge fluxes; with lake_ns
+  // each lake's thread adds its time from the barrier to its last write
   if (a.nl > 0) {
     cg::this_grid().sync();
     const int l = t - ne - nr;
-    if (l >= 0 && l < a.nl) lake_assembly<T, D>(a, l);
+    if (l >= 0 && l < a.nl) {
+      const bool timed = a.lake_ns != nullptr;
+      const long long t0 = timed ? global_ns() : 0;
+      lake_assembly<T, D>(a, l);
+      if (timed) a.lake_ns[l] += global_ns() - t0;
+    }
   }
 }
 
@@ -1039,8 +1058,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 }
 
 // pointer order of the entry points (mega.py _KERNEL_TABLES, then the
-// forcing, the state, its tangent, the output, the scratch and the launch
-// counter)
+// forcing, the state, its tangent, the output, the scratch, the launch
+// counter and the lakes' stage-C clock, null when not timed)
 Args make_args(void* const* p, const int* d) {
   Args a;
   a.cell_f = static_cast<const float*>(p[0]);
@@ -1068,6 +1087,7 @@ Args make_args(void* const* p, const int* d) {
   a.out = static_cast<float*>(p[22]);
   a.s = static_cast<float*>(p[23]);
   a.count = static_cast<unsigned long long*>(p[24]);
+  a.lake_ns = static_cast<long long*>(p[25]);
   a.ne = d[0]; a.nr = d[1]; a.ns = d[2]; a.nl = d[3];
   a.kc = d[4]; a.kr = d[5]; a.kup = d[6]; a.kel = d[7]; a.krl = d[8];
   a.kb = d[9]; a.close_boundary = d[10];

@@ -17,8 +17,14 @@ name, recorded or not, so that a profiler trace (the CLI's ``--profile``)
 places the host's steps beside the card's kernels.  With recording off
 and no profiler, ``span`` returns one shared no-op context.
 
-The device's side (the stamps inside the interval graph) is
-``driver/fused.py`` ``IntervalGraph.phases``.
+A counter is a number the program states once at set-up (``count``,
+kept always; ``counters()``): the mega path's lakes, lake cells and widest
+lists (``shud.mega.*``).
+
+The device's side is the stamps inside the interval graph
+(``driver/fused.py`` ``IntervalGraph.phases``) and the mega kernels' lake
+stage clock (``core/mega.py`` ``lake_stage_ns``), each on while tracing
+is.
 
     from shud_tpu_torch import trace
     trace.enable()
@@ -59,6 +65,7 @@ class Recorder:
         self.open = []
         self.opened = 0
         self.interval = 0
+        self.counters = {}
 
 
 _REC = Recorder()
@@ -134,6 +141,17 @@ def record(name: str, start_ns: int, end_ns: int) -> None:
     index, rec.opened = rec.opened, rec.opened + 1
     rec.kept.append(Span(index, name, start_ns, end_ns,
                          rec.open[-1] if rec.open else -1, rec.interval))
+
+
+def count(name: str, value) -> None:
+    """State the counter *name* (kept always; a later value replaces
+    it)."""
+    _REC.counters[name] = value
+
+
+def counters() -> dict:
+    """The counters stated so far, by name."""
+    return dict(_REC.counters)
 
 
 def next_interval() -> int:

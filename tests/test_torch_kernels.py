@@ -19,7 +19,10 @@ variant with BCs and tied states, rhs.linearize's dY and J·v bitwise
 with either, one device launch of each a linearize call; their wrappers
 refuse what they cannot take.  The interval graph's stamps
 (``%globaltimer``): a pair around a sleep against CUDA events; only with
-tracing on, the captured pieces unchanged.
+tracing on, the captured pieces unchanged.  The mega kernels' lake stage
+clock (``mega.lake_stage_ns``) on a three-lake variant of the benchmark's
+lake basin: only with tracing on, eager and captured, every output
+bitwise the untimed one's.
 """
 
 import numpy as np
@@ -704,6 +707,114 @@ def test_interval_graph_stamps_only_when_traced():
         trace.disable()
     sim.advance_interval(60.0)
     assert stamps(sim.interval.program.nodes) == 0
+
+
+def _lake_basin():
+    """The benchmark's ``lakes-32k`` basin at 16 x 12 quads (384 cells,
+    131 reaches ending at the shore) with three lakes of 80/10/10% of its
+    lake cells in place of its one, so that each lake's thread reads its
+    own clock; its configuration and storm traffic
+    (``portbench/generators/lakebasin.py``; no JAX)."""
+    import json
+    from pathlib import Path
+
+    from portbench import gen, harness
+
+    bench = Path(__file__).resolve().parent.parent / "portbench"
+    cfg = dict(json.loads((bench / "configs/lakes-32k.json").read_text()),
+               nx=16, ny=12)
+    lake = cfg["lakes"][0]
+    cfg["lakes"] = [dict(lake, share=0.8, centre=[0.5, 0.46]),
+                    dict(lake, share=0.1, centre=[0.17, 0.83]),
+                    dict(lake, share=0.1, centre=[0.85, 0.16])]
+    traffic = json.loads((bench / "traffic/storm.json").read_text())
+    raw = gen.make_raw(cfg, traffic,
+                       generator=harness.hooks(harness.OWN, cfg).generator)
+    return raw, cfg, traffic
+
+
+def test_mega_lake_clock_only_when_traced():
+    """Stage C's clock (``mega.lake_stage_ns``) on a basin of three
+    lakes: with tracing off no clock is passed and it stays zero; with it
+    on, each kernel's calls add to its own row only, every lake's entry
+    grows, and each output is bitwise the one made without the clock."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import mega as M
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.core.state import ForcingSlice
+    from shud_tpu_torch.io import project
+    from portbench import gen
+    from torch_variants import mega_inputs
+
+    raw, _, _ = _lake_basin()
+    md = build_mesh(gen.to_input(raw, project, "."))
+    dev = torch.device("cuda")
+    t = M.build_mega_tables(md).to(dev)
+    fs, y, v = mega_inputs(md, seed=9)
+    f = M.pack_forcing(t, ForcingSlice(
+        **{k: torch.as_tensor(a, device=dev) for k, a in fs.items()}))
+    y, v = torch.as_tensor(y, device=dev), torch.as_tensor(v, device=dev)
+    calls = {"mega_rhs": lambda: M.mega_rhs(t, f, y, True),
+             "mega_jvp": lambda: M.mega_jvp(t, f, y, v, True),
+             "mega_diag": lambda: M.mega_diag(t, f, y, True)}
+    reps = 50  # each call's stage C is a fraction of a microsecond here
+    trace.disable()
+    try:
+        off = {k: [c() for _ in range(reps)] for k, c in calls.items()}
+        assert t.nl == 3
+        assert M.lake_stage_ns(t) == {k: [0] * 3 for k in calls}
+        trace.enable()
+        for name, call in calls.items():
+            M.reset_lake_stage(t)
+            on = [call() for _ in range(reps)]
+            ns = M.lake_stage_ns(t)
+            assert all(x > 0 for x in ns[name]), ns
+            assert all(x == 0 for k in calls if k != name for x in ns[k])
+            for a, b in zip(on, off[name]):
+                assert torch.equal(a, b)
+    finally:
+        trace.disable()
+
+
+def test_interval_graph_lake_clock_only_when_traced():
+    """The benchmark's program on the three-lake basin: an interval graph
+    built with tracing on carries stage C's clock in its mega kernels
+    (each kernel's row grows over a replay), one built with it off does
+    not, and the two replays' results are bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs and kernels)")
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import mega as M
+    from portbench.program import Program
+
+    raw, cfg, traffic = _lake_basin()
+    prog = Program(raw, cfg, dict(traffic, end_min=840.0), "cuda", "build")
+    t = prog.sim.mega
+    prog.snapshot()
+    trace.disable()
+    try:
+        replays = {}
+        for traced in (False, True, False):
+            (trace.enable if traced else trace.disable)()
+            prog.restore()
+            prog.interval()  # builds the graph of this key
+            prog.restore()
+            M.reset_lake_stage(t)
+            replays.setdefault(traced, []).append(
+                [prog.interval() for _ in range(prog.n_intervals)])
+            ns = M.lake_stage_ns(t)
+            grew = [all(x > 0 for x in ns[k]) for k in ns]
+            assert grew == [traced] * 3, (traced, ns)
+    finally:
+        trace.disable()
+        prog.close()
+    for a, b in zip(replays[True][0], replays[False][0]):
+        for k in ("y", "q_riv_down"):
+            assert np.array_equal(a[k], b[k]), k
+    for a, b in zip(replays[False][0], replays[False][1]):
+        assert np.array_equal(a["y"], b["y"])
 
 
 @pytest.mark.parametrize("with_lake", (False, True))
