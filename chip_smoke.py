@@ -29,7 +29,10 @@ and the script exits nonzero; nothing falls back to the CPU):
     20), profiler device time, and the bound; the two tangent factor
     kernels (edge_tangent.cu) on a random slice, every factor bitwise
     rhs._tangent_factors (both boundary modes), their times beside the
-    plain version of the whole factor build;
+    plain version of the whole factor build; the two RHS kernels
+    (edge_rhs.cu) on the same slice, dY, every diagnostic and every saved
+    intermediate bitwise rhs._rhs_plain (both boundary modes, with
+    edge_flux and with edge_coeff), their times beside the plain RHS;
  5. each mega kernel against its plain version on the 32k, lake and
     branched meshes, both boundary modes: mega_rhs and mega_jvp bitwise
     and mega_diag bitwise equal, all bitwise repeatable; times and
@@ -51,7 +54,8 @@ and the script exits nonzero; nothing falls back to the CPU):
     two iterations): at 131k edge_coeff, tangent_cell and tangent_reach
     once per Newton iteration, edge_apply
     krylov_m times and edge_flux once a window (the diagnostics; the run
-    has no water-balance quadrature), no mega kernel; at 32k the mega
+    has no water-balance quadrature), rhs_cell and rhs_assemble once each
+    per Newton iteration and window, no mega kernel; at 32k the mega
     trio and no edge kernel, mega_rhs once per Newton iteration, mega_jvp
     krylov_m times and mega_diag once a window (the Newton iterations
     read from the device carry, plus the two of the interval graph's
@@ -206,6 +210,11 @@ REPLACES = {
 TANGENT_SOURCE = "shud_tpu_torch/csrc/edge_tangent.cu"
 TANGENT_REPLACES = dict.fromkeys(("tangent_cell", "tangent_reach"),
                                  "shud_tpu/core/rhs.py (jax.linearize)")
+# the edge path's primal RHS around the edge kernel: no Pallas kernel (XLA
+# fuses the RHS)
+RHS_SOURCE = "shud_tpu_torch/csrc/edge_rhs.cu"
+RHS_REPLACES = dict.fromkeys(("rhs_cell", "rhs_assemble"),
+                             "shud_tpu/core/rhs.py (XLA's fusion of rhs)")
 MEGA_REPLACES = {
     "mega_rhs": "shud_tpu/core/pallas_mega.py:1446",
     "mega_jvp": "shud_tpu/core/pallas_mega.py:1478",
@@ -312,6 +321,9 @@ EDGE_OPS = {"edge_flux": 45, "edge_coeff": 110, "edge_apply": 10}
 # the tangent factor kernels (edge_tangent.cu): per cell, and per segment
 # or reach (the larger of the two, the reach's two Manning tangents)
 TANGENT_OPS = {"tangent_cell": 230, "tangent_reach": 110}
+# the RHS kernels (edge_rhs.cu): per cell (the cell update, ET and the
+# vertical fluxes; the assembly's sums and derivatives)
+RHS_OPS = {"rhs_cell": 150, "rhs_assemble": 40}
 MEGA_OPS = {
     "mega_rhs": {"cell": 290, "seg": 40, "reach": 55},
     "mega_jvp": {"cell": 590, "seg": 80, "reach": 110},
@@ -693,6 +705,67 @@ def phase_tangent(md, dm, torch, edge, results, device_times):
           lambda: edge.tangent_reach(floats, rflags, ns, nr), plain,
           reach_bytes, TANGENT_OPS["tangent_reach"] * (ns + nr), 0.0,
           results, device_times)
+    phase_rhs_kernels(md, dm, torch, edge, results, device_times)
+
+
+def phase_rhs_kernels(md, dm, torch, edge, results, device_times):
+    """Phase 4, the RHS kernels (csrc/edge_rhs.cu): dY, every diagnostic
+    and every intermediate linearize saves bitwise the plain RHS
+    (rhs._rhs_plain) on a random slice with dry cells, closed and open
+    boundary, with edge_flux and with edge_coeff; each kernel's time
+    against its bytes, beside the plain RHS."""
+    from shud_tpu_torch.core import rhs as R
+
+    f32, dev = torch.float32, torch.device(DEVICE)
+    ne, ns, nr = md.num_ele, md.num_seg, md.num_riv
+    fs, y = random_slice(md, f32, dev, seed=3)
+    check(R._rhs_on_kernels(dm, fs, y, False), "the RHS kernels not taken")
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    for cb in (True, False):
+        for coeffs in (None, []):
+            got = R._rhs(dm, fs, y, cb, False, coeffs)
+            ref = R._rhs_plain(dm, fs, y, cb, False,
+                               None if coeffs is None else [])
+            torch.cuda.synchronize()
+            pairs = [("dy", got[0], ref[0])]
+            for g, r in zip(got[1:], ref[1:]):
+                for k in r:
+                    if k == "cu":
+                        pairs += [(f"cu.{f}", getattr(g[k], f),
+                                   getattr(r[k], f)) for f in r[k]._fields]
+                    else:
+                        pairs.append((k, g[k], r[k]))
+            parted = [k for k, a, b in pairs
+                      if not torch.equal(bits(a), bits(b))]
+            log(f"  RHS kernels cb={cb} edge_"
+                f"{'flux' if coeffs is None else 'coeff'}: {len(pairs)} "
+                f"outputs, {len(parted)} not bitwise {parted}")
+            check(not parted, f"RHS kernels not bitwise: {parted}")
+    cell, flags, src = R._rhs_cell_inputs(dm, fs, y)
+    out = dict(zip(R._RHS_CELL_OUT, edge.rhs_cell(cell, flags)))
+    q_surf, q_sub = edge.edge_flux(src["sf"], out["gw"], out["eff_kh"],
+                                   dm.edge_tables, True)
+    src.update(out, q_surf=q_surf, q_sub=q_sub)
+    floats, aflags = R._rhs_assemble_inputs(dm, src)
+    # bytes: every input once (the per-cell fields the segments and
+    # reaches gather counted once), every output once
+    cell_bytes = nbytes(*(t for _, t in cell + flags)) + 4 * 17 * ne
+    asm_bytes = (nbytes(*(t for _, t, _ in floats + aflags))
+                 + 4 * (3 * ne + nr) + 4 * 3 * ne
+                 + 4 * (4 * ne + 4 * ns + 13 * nr))
+
+    def plain():
+        return R._rhs_plain(dm, fs, y, True, False)
+
+    timed("rhs_cell", lambda: edge.rhs_cell(cell, flags), plain, cell_bytes,
+          RHS_OPS["rhs_cell"] * ne, 0.0, results, device_times)
+    timed("rhs_assemble",
+          lambda: edge.rhs_assemble(floats, aflags, ne, ns, nr), plain,
+          asm_bytes, RHS_OPS["rhs_assemble"] * ne, 0.0, results,
+          device_times)
 
 
 def timed(name, kern, plain, n_bytes, n_ops, max_abs_err, results,
@@ -2437,14 +2510,16 @@ def phase_main_paths(inp, inp32, torch, edge, mega, solver, bdf,
         windows = run["windows"] + run["graph"]["warmup_windows"]
         m = run["krylov_m"]
         if want is edge:
-            # linearized once per Newton iteration (the coefficient kernel
-            # in the primal, the two tangent factor kernels after it), one
-            # apply per Krylov vector; edge_flux only in the window
-            # diagnostics (no quad_rates: SHUD_WB_DIAG off)
+            # linearized once per Newton iteration (the RHS kernels around
+            # the coefficient kernel in the primal, the two tangent factor
+            # kernels after it), one apply per Krylov vector; edge_flux
+            # only in the window diagnostics, between the RHS kernels (no
+            # quad_rates: SHUD_WB_DIAG off)
             n = run["launches"]
             check(n["edge_coeff"] == it and n["edge_apply"] == m * it
                   and n["tangent_cell"] == n["tangent_reach"] == it
-                  and n["edge_flux"] == windows,
+                  and n["edge_flux"] == windows
+                  and n["rhs_cell"] == n["rhs_assemble"] == it + windows,
                   f"{name}: {n} for {it} Newton iterations in "
                   f"{windows} windows")
         if want is mega:
@@ -2923,8 +2998,8 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     if not all((ROOT / src).is_file()
-               for src in (EDGE_SOURCE, TANGENT_SOURCE, MEGA_SOURCE,
-                           SOLVER_SOURCE)):
+               for src in (EDGE_SOURCE, TANGENT_SOURCE, RHS_SOURCE,
+                           MEGA_SOURCE, SOLVER_SOURCE)):
         print("chip_smoke: shud_tpu_torch is not next to this script",
               file=sys.stderr)
         return 2
@@ -3113,11 +3188,13 @@ def main() -> int:
                     launches=counts[name], **results[name])
                for src, rep in ((EDGE_SOURCE, REPLACES),
                                 (TANGENT_SOURCE, TANGENT_REPLACES),
+                                (RHS_SOURCE, RHS_REPLACES),
                                 (MEGA_SOURCE, MEGA_REPLACES),
                                 (SOLVER_SOURCE, SOLVER_REPLACES))
                for name in rep]
     for k in kernels:  # the later main paths' launches
-        if k["name"] in TANGENT_REPLACES:  # the sharded driver's are 0
+        # the sharded driver's are 0
+        if k["name"] in TANGENT_REPLACES or k["name"] in RHS_REPLACES:
             continue
         if k["name"] in REPLACES:  # phase 17's, per rank
             k["sharded_launches"] = [

@@ -119,6 +119,8 @@ def _load() -> ctypes.CDLL:
     pp, ip = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
     lib.shud_tangent_cell.argtypes = [pp, p, p, i, i, p]
     lib.shud_tangent_reach.argtypes = [pp, p, p, p, i, i, p]
+    lib.shud_rhs_cell.argtypes = [pp, p, p, i, p]
+    lib.shud_rhs_assemble.argtypes = [pp, ip, pp, p, p, p, p, p]
     for name in ("shud_mega_rhs", "shud_mega_jvp", "shud_mega_diag"):
         getattr(lib, name).argtypes = [pp, ip, p]
     lib.shud_mega_occupancy.argtypes = [i, ip]
@@ -145,6 +147,7 @@ def _load() -> ctypes.CDLL:
         getattr(lib, f"shud_{name}").argtypes = args
     for fn in (lib.shud_edge_flux, lib.shud_edge_coeff, lib.shud_edge_apply,
                lib.shud_tangent_cell, lib.shud_tangent_reach,
+               lib.shud_rhs_cell, lib.shud_rhs_assemble,
                lib.shud_mega_rhs, lib.shud_mega_jvp, lib.shud_mega_diag,
                lib.shud_mega_occupancy, lib.shud_mega_barrier_probe,
                *(getattr(lib, f"shud_graph_{n}") for n in graph_args),

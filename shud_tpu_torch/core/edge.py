@@ -32,8 +32,11 @@ equals ``jax.jvp`` of the reference's XLA path.
 Beside them, the launches of the two kernels of ``csrc/edge_tangent.cu``
 (``tangent_cell``, ``tangent_reach``): the rest of ``rhs.linearize``'s
 tangent factors on the kernel path.  Their plain version is
-``rhs._tangent_factors``, which runs on every other route; these wrappers
-take CUDA tensors only.
+``rhs._tangent_factors``, which runs on every other route.  And the two
+of ``csrc/edge_rhs.cu`` (``rhs_cell``, ``rhs_assemble``): the rest of the
+primal RHS around the edge kernel on a lake-free mesh, whose plain
+version is ``rhs._rhs_plain``.  These four wrappers take CUDA tensors
+only.
 """
 
 from __future__ import annotations
@@ -49,7 +52,8 @@ from shud_tpu_torch.core.physics import (
     _TINY, absolute, cbrt, maximum, minimum, pow23)
 
 _counts = LaunchCounts(("edge_flux", "edge_coeff", "edge_apply",
-                        "tangent_cell", "tangent_reach"))
+                        "tangent_cell", "tangent_reach", "rhs_cell",
+                        "rhs_assemble"))
 # launches of each CUDA kernel by its wrapper since the last
 # reset_launch_counts(); device_launch_counts() gives the kernels' own
 # count, which also counts the runs of a captured launch
@@ -354,23 +358,24 @@ def edge_apply(coeffs, tsf, tgw, tkh, et):
 
 
 def _check_fields(fields, dtype, device):
-    """Validate what a tangent kernel reads: ``(name, tensor, length)``
-    triples, each of *dtype*, 1-D of that length, contiguous, on
-    *device*."""
+    """Validate what a tangent or RHS kernel reads: ``(name, tensor,
+    shape)`` triples (a length for a 1-D shape), each of *dtype*, of that
+    shape, contiguous, on *device*."""
     for name, t, n in fields:
+        want = n if isinstance(n, tuple) else (n,)
         if t.device != device:
             raise ValueError(f"{name} on {t.device}, the kernel's inputs on "
                              f"{device}")
         if t.dtype != dtype:
             raise ValueError(f"{name} is {t.dtype}, the kernel takes {dtype}")
-        if tuple(t.shape) != (n,):
+        if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
-                             f"({n},)")
+                             f"{want}")
         if not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
 
 
-def _tangent_args(name, floats, flags):
+def _kernel_args(name, floats, flags):
     """Validate *floats* (float32) and *flags* (int64) on the first's CUDA
     device; returns ``(device, their addresses as a pointer array)``."""
     dev = floats[0][1].device
@@ -388,8 +393,8 @@ def tangent_cell(floats, flags, lake: bool) -> torch.Tensor:
     *flags* (``i_bc``, ``i_lake``, int64 ``[ne]``); lake cells' factors 0
     when *lake*."""
     ne = floats[0][1].shape[0]
-    dev, ptrs = _tangent_args("tangent_cell", [(k, t, ne) for k, t in floats],
-                              [(k, t, ne) for k, t in flags])
+    dev, ptrs = _kernel_args("tangent_cell", [(k, t, ne) for k, t in floats],
+                             [(k, t, ne) for k, t in flags])
     # N_CELL_OUT rows
     out = torch.empty((16, ne), dtype=torch.float32, device=dev)
     err = load_library().shud_tangent_cell(
@@ -406,7 +411,7 @@ def tangent_reach(floats, flags, ns: int, nr: int):
     ``rhs._TANGENT_RIV_OUT``) in one float32 buffer, and the downstream
     index ``[nr]`` (int64).  *floats* and *flags*: ``(name, tensor,
     length)`` in ``rhs._TANGENT_REACH_FIELDS`` order."""
-    dev, ptrs = _tangent_args("tangent_reach", floats, flags)
+    dev, ptrs = _kernel_args("tangent_reach", floats, flags)
     out = torch.empty(6 * ns + 5 * nr, dtype=torch.float32, device=dev)
     dn = torch.empty(nr, dtype=torch.int64, device=dev)
     err = load_library().shud_tangent_reach(
@@ -416,6 +421,105 @@ def tangent_reach(floats, flags, ns: int, nr: int):
     _raise_if(err, "tangent_reach")
     launch_counts["tangent_reach"] += 1
     return out, dn
+
+
+def rhs_cell(floats, flags) -> torch.Tensor:
+    """The RHS's cell kernel: ``[17, ne]`` rows (``rhs._RHS_CELL_OUT``)
+    from *floats* (``rhs._RHS_CELL_FIELDS``, float32 ``[ne]``) and
+    *flags* (``i_bc``, int64 ``[ne]``), each ``(name, tensor)``."""
+    ne = floats[0][1].shape[0]
+    dev, ptrs = _kernel_args("rhs_cell", [(k, t, ne) for k, t in floats],
+                             [(k, t, ne) for k, t in flags])
+    # N_CELL_OUT rows
+    out = torch.empty((17, ne), dtype=torch.float32, device=dev)
+    err = load_library().shud_rhs_cell(
+        ptrs, out.data_ptr(), _counts.pointer("rhs_cell", dev), ne,
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    _raise_if(err, "rhs_cell")
+    launch_counts["rhs_cell"] += 1
+    return out
+
+
+def rhs_assemble(floats, flags, ne: int, ns: int, nr: int, given=None,
+                 pre: bool = False):
+    """The RHS's assembly kernel: ``(dy [3 ne + nr], q_esub [ne, 3],
+    rows)``, the rows the cell sums ``[4, ne]``, the segments' ``[4, ns]``
+    and the reaches' ``[13, nr]`` (``rhs._RHS_CELL_SUMS``,
+    ``_RHS_SEG_OUT``, ``_RHS_RIV_OUT``) in one float32 buffer.  *floats*
+    (float32) and *flags* (int64, the gather lists last): ``(name, tensor,
+    shape)`` in ``rhs._RHS_ASSEMBLE_FIELDS`` and ``_RHS_ASSEMBLE_FLAGS``
+    order.
+
+    *given*: ``rhs._RHS_GIVEN``'s sums, each ``None`` or torch's float32
+    sum to take in the kernel's place; a gather list whose order the
+    kernel does not keep (``sum_in_order``) has to have its sums given.
+    *pre*: the launch before such sums, writing only the segments' rows
+    and the reaches' first eight (``dy`` and ``q_esub`` are ``None``)."""
+    lists = flags[-3:]
+    given = [None] * 5 if given is None else list(given)
+    # rhs._RHS_GIVEN: seg_to_ele's two sums, seg_to_riv's two, riv_to_down's
+    owners = (0, 0, 1, 1, 2)
+    if len(given) != 5:
+        raise ValueError(f"rhs_assemble takes 5 given sums, got {len(given)}")
+    for o, (name, t, _) in enumerate(lists):
+        mine = [given[g] is None for g in range(5) if owners[g] == o]
+        if len(set(mine)) > 1:
+            raise ValueError(f"rhs_assemble: {name}'s sums given in part")
+        if mine[0] and not pre and not sum_in_order(t):
+            raise ValueError(
+                f"rhs_assemble cannot keep torch's order of {name}'s sum "
+                f"({tuple(t.shape)}); give its sums")
+    dev, ptrs = _kernel_args("rhs_assemble", floats, flags)
+    _check_fields([(f"given[{g}]", t, ne if owners[g] == 0 else nr)
+                   for g, t in enumerate(given) if t is not None],
+                  torch.float32, dev)
+    shapes = [t.shape for _, t, _ in lists]
+    dims = (ctypes.c_int * 10)(ne, ns, nr, *(k for _, k in shapes),
+                               *(sum_threads(k, n) for n, k in shapes),
+                               int(pre))
+    sums = (ctypes.c_void_p * 5)(*(None if t is None else t.data_ptr()
+                                   for t in given))
+    dy = q_esub = None
+    if not pre:
+        dy = torch.empty(3 * ne + nr, dtype=torch.float32, device=dev)
+        q_esub = torch.empty((ne, 3), dtype=torch.float32, device=dev)
+    rows = torch.empty(4 * ne + 4 * ns + 13 * nr, dtype=torch.float32,
+                       device=dev)
+    err = load_library().shud_rhs_assemble(
+        ptrs, dims, sums, None if pre else dy.data_ptr(),
+        None if pre else q_esub.data_ptr(), rows.data_ptr(),
+        _counts.pointer("rhs_assemble", dev),
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    _raise_if(err, "rhs_assemble")
+    launch_counts["rhs_assemble"] += 1
+    return dy, q_esub, rows
+
+
+# torch's CUDA sum over a row that the RHS kernels keep bit for bit: at
+# most SUM_WIDTH_MAX elements (from 128 its reduce kernel loads four
+# neighbours at a time, another order), so over at most 64 threads a row
+# (sum_threads; csrc/edge_rhs.cu's kMaxSumThreads, the depth of its tree)
+SUM_WIDTH_MAX = 127
+
+
+def sum_threads(k: int, n: int) -> int:
+    """Threads a row of torch's CUDA sum over the last dimension of a
+    contiguous float32 ``[n, k]`` tensor, ``k <= SUM_WIDTH_MAX`` (its
+    reduce kernel's launch configuration: at most 512 threads a block, up
+    to a warp across a row, more where few rows leave the block room)."""
+    def last_pow2(x):
+        return 512 if x >= 512 else 1 << (max(x, 1).bit_length() - 1)
+
+    d0, d1 = last_pow2(k), last_pow2(n)
+    height = min(d1, 512 // min(d0, 32))
+    return min(d0, 512 // height)
+
+
+def sum_in_order(lst: torch.Tensor) -> bool:
+    """The RHS kernels keep the order of torch's sum over each row of the
+    gather list *lst* (``[n, k]``); where not, torch sums it
+    (``rhs._rhs_assemble``)."""
+    return lst.shape[1] <= SUM_WIDTH_MAX
 
 
 # ---------------------------------------------------------------------------

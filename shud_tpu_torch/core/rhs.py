@@ -9,7 +9,10 @@ river-chain stencil -> reductions -> pointwise assembly.
 Every reduction is a fixed-width gather list summed in a fixed order
 (``device.gather_sum``), so the RHS is deterministic on the GPU as well.
 The edge stencil runs the CUDA edge-flux kernels when the mesh was built
-with ``edge_kernel`` and the state is float32 on CUDA (``edge_fluxes``).
+with ``edge_kernel`` and the state is float32 on CUDA (``edge_fluxes``);
+there, on a lake-free mesh, the rest of the RHS runs as two more kernels
+around them (``_rhs_kernels``, ``csrc/edge_rhs.cu``), bitwise its plain
+version ``_rhs_plain``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from shud_tpu_torch import trace
 from shud_tpu_torch.config import EPSILON, GRAV, MAXYSURF, ZERO
 from shud_tpu_torch.core import edge as edge_mod
 from shud_tpu_torch.core import physics as ph
@@ -336,7 +340,42 @@ def rhs_full(m, fs: ForcingSlice, t, y, close_boundary: bool = True,
 def _rhs(m, fs: ForcingSlice, y, close_boundary: bool, exact_parity: bool,
          coeffs: "list | None" = None):
     """``rhs_full``'s body: (dy, diag, the intermediates ``linearize``
-    reads).  *coeffs* as in ``edge_fluxes``."""
+    reads).  *coeffs* as in ``edge_fluxes``.  On a lake-free mesh on the
+    edge kernels' route the RHS kernels compute it (``_rhs_kernels``),
+    elsewhere its plain version (``_rhs_plain``); the counter
+    ``shud.edge.rhs_kernels`` says which the last call outside a
+    ``torch.func`` transform took."""
+    kernels = _rhs_on_kernels(m, fs, y, exact_parity)
+    if not torch._C._are_functorch_transforms_active():
+        trace.count("shud.edge.rhs_kernels", int(kernels))
+    if kernels:
+        return _rhs_kernels(m, fs, y, close_boundary, coeffs)
+    return _rhs_plain(m, fs, y, close_boundary, exact_parity, coeffs)
+
+
+def _rhs_on_kernels(m, fs: ForcingSlice, y, exact_parity: bool) -> bool:
+    """``_rhs`` runs the RHS kernels: the edge kernels' route (float32 on
+    CUDA) in the local-datum form, on a lake-free mesh, outside a
+    ``torch.func`` transform.  A lake mesh keeps the plain RHS; inside a
+    transform (the ``torch.func.jvp`` J·v) the plain RHS carries the
+    derivative, as ``edge.edge_fluxes`` hands the edge kernels to
+    ``EdgeFluxFunction`` there.  The kernels have no reverse-mode
+    derivative, so a call autograd would record on the route is refused,
+    as ``edge.edge_fluxes`` refuses it."""
+    if (exact_parity or m.num_lake > 0 or not _on_kernels(m, y)
+            or torch._C._are_functorch_transforms_active()):
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (y, *fs)):
+        raise RuntimeError("the RHS kernels have no reverse-mode derivative;"
+                           " reverse mode is not supported")
+    return True
+
+
+def _rhs_plain(m, fs: ForcingSlice, y, close_boundary: bool,
+               exact_parity: bool, coeffs: "list | None" = None):
+    """``_rhs`` in PyTorch: the plain version of ``_rhs_kernels``, and the
+    route for lakes, the CPU, float64, the absolute-head oracle and
+    ``torch.func`` transforms."""
     ne, nr = m.num_ele, m.num_riv
     nl = m.num_lake if m.num_lake > 0 else 0
     lists = m.lists
@@ -549,6 +588,154 @@ def _rhs(m, fs: ForcingSlice, y, close_boundary: bool, exact_parity: bool,
         q_lake_prcp=q_lake_prcp, q_lake_rivin=q_lake_rivin,
         q_lake_surf=q_lake_surf, q_lake_sub=q_lake_sub, lake_area=lake_area,
     )
+    return dy, diag, saved
+
+
+# the RHS kernels' inputs, in csrc/edge_rhs.cu's CellField and AsmField
+# order, and their output rows.  The cell kernel reads the state's sf, us
+# and gw (before the head BC), the forcing and the mesh; the assembly the
+# cell kernel's rows (its gw after the head BC), the edge kernel's fluxes
+# and the reaches' stages (``riv``, before the stage BC).
+_RHS_CELL_FIELDS = (
+    "sf", "us", "gw", "ele_ybc", "pot_evap", "lai", "e_ic", "pot_tran",
+    "net_prcp", "fu_surf", "fu_sub", "aq_depth", "mac_d", "mac_ksat_h",
+    "geo_v_area_f", "ksat_h", "inf_ksat_v", "h_area_f", "mac_ksat_v",
+    "theta_s", "theta_r", "beta", "veg_frac", "imp_af", "wetland_level",
+    "rootreach_level", "inf_d", "ksat_v", "theta_fc")
+_RHS_CELL_OUT = ("gw", "eff_kh", "deficit", "satn", "sat_kr", "theta",
+                 "kmax", "es", "eu", "eg", "tu", "tg", "e_ic", "ibeta",
+                 "q_infil", "q_exfil", "q_rech")
+_RHS_ASSEMBLE_FIELDS = (
+    ("sf", "net_prcp", "fu_sub", "ele_qbc", "ele_qss", "area", "sy",
+     "aq_depth", "depression", "gw", "eff_kh", "es", "eu", "eg", "tu", "tg",
+     "q_infil", "q_exfil", "q_rech"),  # [ne]
+    ("q_surf", "q_sub"),  # [ne, 3]
+    ("seg_cwr", "seg_length"),  # [ns]
+    ("riv", "riv_ybc", "riv_qbc", "riv_depth", "riv_ksat_h", "riv_bed_thick",
+     "riv_bank_slope", "riv_bottom_width", "riv_bed_slope", "riv_dist2down",
+     "riv_avg_rough", "riv_length"))  # [nr]
+_RHS_ASSEMBLE_FLAGS = (
+    ("i_bc", "i_ss"), ("seg_ele", "seg_riv"),
+    ("riv_bc", "riv_down", "riv_to_lake", "riv_outlet_code"),
+    ("seg_to_ele", "seg_to_riv", "riv_to_down"))  # the lists [n, k]
+_RHS_CELL_SUMS = ("q_surf_tot", "q_sub_tot", "q_e2r_surf", "q_e2r_sub")
+# the assembly's gather sums, as _rhs_plain takes them: (list, the row it
+# sums, negated), in csrc/edge_rhs.cu's Given order
+_RHS_GIVEN = (("seg_to_ele", "q_seg_surf", True),
+              ("seg_to_ele", "q_seg_sub", True),
+              ("seg_to_riv", "q_seg_surf", False),
+              ("seg_to_riv", "q_seg_sub", False),
+              ("riv_to_down", "q_riv_down", True))
+_RHS_SEG_OUT = ("seg_isf_raw", "seg_isf", "q_seg_surf", "q_seg_sub")
+_RHS_RIV_OUT = ("riv_stage", "r_topw", "r_csa", "r_per", "r_hyd", "s_down",
+                "s_out", "q_riv_down", "q_riv_surf", "q_riv_sub", "q_riv_up",
+                "d_area_raw", "d_area")
+
+
+def _rhs_cell_inputs(m, fs: ForcingSlice, y):
+    """``(floats, flags, src)``: the cell kernel's inputs as ``(name,
+    tensor)`` in ``_RHS_CELL_FIELDS`` order and ``i_bc``, and the state's
+    and the forcing's fields by name."""
+    ne, nr = m.num_ele, m.num_riv
+    sf, us, gw, riv, _ = split_y(y, ne, nr, 0)
+    src = dict(fs._asdict(), sf=sf, us=us, gw=gw, riv=riv)
+    return ([(k, src[k] if k in src else getattr(m, k))
+             for k in _RHS_CELL_FIELDS], [("i_bc", m.i_bc)], src)
+
+
+def _rhs_assemble_inputs(m, src: dict):
+    """``(floats, flags)``: the assembly's inputs as ``(name, tensor,
+    shape)`` in ``_RHS_ASSEMBLE_FIELDS`` and ``_RHS_ASSEMBLE_FLAGS`` order;
+    *src* the state's, the forcing's, the cell kernel's and the edge
+    kernel's fields by name (the mesh's otherwise, its gather lists
+    last)."""
+    ne, ns, nr = m.num_ele, m.num_seg, m.num_riv
+
+    def get(k):
+        return src[k] if k in src else getattr(m, k)
+
+    floats = [(k, get(k), shape)
+              for group, shape in zip(_RHS_ASSEMBLE_FIELDS,
+                                      (ne, (ne, 3), ns, nr))
+              for k in group]
+    cells, segs, rivs, lists = _RHS_ASSEMBLE_FLAGS
+    flags = ([(k, get(k), ne) for k in cells]
+             + [(k, get(k), ns) for k in segs]
+             + [(k, get(k), nr) for k in rivs]
+             + [(k, t, tuple(t.shape))
+                for k, t in ((k, getattr(m.lists, k)) for k in lists)])
+    return floats, flags
+
+
+def _rhs_assemble(floats, flags, ne: int, ns: int, nr: int):
+    """``edge.rhs_assemble`` on ``_rhs_assemble_inputs``'s *floats* and
+    *flags*.  A gather list whose sum's order the kernel does not keep
+    (``edge.sum_in_order``) torch sums, as ``_rhs_plain`` does, between a
+    first launch that writes the rows those sums read and the assembly
+    proper; the counter ``shud.edge.rhs_torch_sums`` gives how many."""
+    lists = {k: t for k, t, _ in flags[-3:]}
+    wide = {k for k, t in lists.items() if not edge_mod.sum_in_order(t)}
+    trace.count("shud.edge.rhs_torch_sums", len(wide))
+    given = None
+    if wide:
+        pre = _rhs_rows(edge_mod.rhs_assemble(floats, flags, ne, ns, nr,
+                                              pre=True)[2], ne, ns, nr)
+        given = [gather_sum(-pre[row] if neg else pre[row], lists[k])
+                 if k in wide else None for k, row, neg in _RHS_GIVEN]
+    return edge_mod.rhs_assemble(floats, flags, ne, ns, nr, given)
+
+
+def _rhs_rows(rows, ne: int, ns: int, nr: int) -> dict:
+    """The assembly's rows by name (``_RHS_CELL_SUMS``, ``_RHS_SEG_OUT``,
+    ``_RHS_RIV_OUT``)."""
+    return dict(zip(_RHS_CELL_SUMS + _RHS_SEG_OUT + _RHS_RIV_OUT,
+                    (*rows[:4 * ne].view(4, ne),
+                     *rows[4 * ne:4 * ne + 4 * ns].view(4, ns),
+                     *rows[4 * ne + 4 * ns:].view(13, nr))))
+
+
+def _rhs_kernels(m, fs: ForcingSlice, y, close_boundary: bool,
+                 coeffs: "list | None" = None):
+    """``_rhs`` on a lake-free mesh as three launches on one stream:
+    ``edge.rhs_cell``, the edge kernel (``edge_coeff`` given *coeffs*,
+    else ``edge_flux``) and ``edge.rhs_assemble`` (``csrc/edge_rhs.cu``),
+    each output bitwise ``_rhs_plain``'s; a gather list whose sum's order
+    the assembly does not keep adds a launch and torch's sum of it
+    (``_rhs_assemble``; none on the benchmark's meshes).  Float32 CUDA
+    tensors only; anything else raises."""
+    ne, ns, nr = m.num_ele, m.num_seg, m.num_riv
+    cell, flags, src = _rhs_cell_inputs(m, fs, y)
+    out = dict(zip(_RHS_CELL_OUT, edge_mod.rhs_cell(cell, flags)))
+    sf, gw, et = src["sf"], out["gw"], m.edge_tables
+    if coeffs is not None:
+        q_surf, q_sub, *cs = edge_mod.edge_coeff(sf, gw, out["eff_kh"], et,
+                                                 close_boundary)
+        coeffs.extend(cs)
+    else:
+        q_surf, q_sub = edge_mod.edge_flux(sf, gw, out["eff_kh"], et,
+                                           close_boundary)
+    src.update(out, q_surf=q_surf, q_sub=q_sub)
+    dy, q_esub, rows = _rhs_assemble(*_rhs_assemble_inputs(m, src), ne, ns,
+                                     nr)
+    out.update(_rhs_rows(rows, ne, ns, nr))
+    cu = CellUpdate(*(out[k] for k in CellUpdate._fields))
+    # no lake: the lake terms empty, as _rhs_plain's
+    lakes = ("q_lake_prcp", "q_lake_surf", "q_lake_sub", "q_lake_rivin",
+             "lake_area")
+    empty = y.new_zeros(0)
+    diag = {k: out[k] for k in (
+        "q_infil", "q_exfil", "q_rech", "q_surf_tot", "q_sub_tot",
+        "q_seg_surf", "q_seg_sub", "q_riv_surf", "q_riv_sub", "q_riv_down",
+        "q_riv_up", "q_e2r_surf", "q_e2r_sub", "es", "eu", "eg", "tu", "tg",
+        "e_ic", "ibeta", "eff_kh", "satn", "theta")}
+    diag.update(dict.fromkeys(lakes + ("q_lake_evap",), empty),
+                q_esurf=q_surf, q_esub=q_esub)
+    saved = {k: out[k] for k in (
+        "gw", "riv_stage", "ibeta", "r_topw", "r_csa", "r_per", "r_hyd",
+        "s_down", "s_out", "seg_isf", "seg_isf_raw", "d_area_raw",
+        "d_area")}
+    saved.update(dict.fromkeys(lakes + ("q_lake_evap_raw",), empty), sf=sf,
+                 us=src["us"], lake_stg=y[3 * ne + nr:], cu=cu)
     return dy, diag, saved
 
 

@@ -131,10 +131,28 @@ def test_cpu_wrappers_run_plain_versions():
     assert all(torch.equal(x, y) for x, y in zip(e, f))
     assert E.launch_counts == {"edge_flux": 0, "edge_coeff": 0,
                                "edge_apply": 0, "tangent_cell": 0,
-                               "tangent_reach": 0}
+                               "tangent_reach": 0, "rhs_cell": 0,
+                               "rhs_assemble": 0}
     sf = s["t"][0].clone().requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-mode"):
         E.edge_fluxes(et, sf, s["t"][1], kh, True)
     with pytest.raises(ValueError, match="float32 on a CUDA"):
         to_torch(meshes("plain", 4, 2)[1], torch.float32, "cpu",
                  edge_kernel=True)
+
+
+@pytest.mark.parametrize("k, n, threads", [
+    (1, 10, 1), (3, 131072, 2), (4, 300, 4), (31, 3, 16), (33, 300, 32),
+    (63, 3, 32), (64, 3, 64), (70, 300, 32), (100, 4096, 32), (127, 1, 64),
+    (127, 3, 64), (128, 4096, None), (600, 1, None)])
+def test_sum_threads_follow_reduce_config(k, n, threads):
+    """edge.sum_threads gives torch's CUDA reduce kernel's threads a row up
+    to SUM_WIDTH_MAX elements, at most the 64 the RHS kernels' tree holds,
+    and edge.sum_in_order admits a gather list exactly where it is that
+    narrow (from 128 torch loads a row four elements at a time)."""
+    if threads is not None:
+        assert E.sum_threads(k, n) == threads
+    assert max(E.sum_threads(k_, n_) for k_ in range(1, E.SUM_WIDTH_MAX + 1)
+               for n_ in (1, 2, 3, 300)) == 64
+    lst = torch.zeros((n, k), dtype=torch.long)
+    assert E.sum_in_order(lst) == (threads is not None)

@@ -257,8 +257,10 @@ def test_tangent_kernels_one_launch_per_linearize():
     for _ in range(3):
         jvp(v)
     torch.cuda.synchronize()
+    # a lake mesh keeps the plain RHS
     want = {"edge_flux": 0, "edge_coeff": 1, "edge_apply": 3,
-            "tangent_cell": 1, "tangent_reach": 1}
+            "tangent_cell": 1, "tangent_reach": 1, "rhs_cell": 0,
+            "rhs_assemble": 0}
     assert E.device_launch_counts() == want
     assert E.launch_counts == want
 
@@ -297,6 +299,329 @@ def test_tangent_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="shape"):
         E.tangent_reach(floats, [], ns, nr)
     assert E.launch_counts == n0
+
+
+# the RHS kernels (csrc/edge_rhs.cu) on every lake-free mesh variant
+RHS_VARIANTS = tuple(v for v in TANGENT_VARIANTS if v != "lake")
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit (the sign of a zero and a NaN's payload too)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _rhs_parted(got, ref) -> list:
+    """The names whose tensors part from *ref*'s (dY, diag, saved: the
+    cell update field by field)."""
+    out = [] if _same_bits(got[0], ref[0]) else ["dy"]
+    for g, r in zip(got[1:], ref[1:]):
+        if set(g) != set(r):
+            out.append(("keys", sorted(set(g) ^ set(r))))
+            continue
+        for k in r:
+            if k == "cu":
+                out += [f"cu.{f}" for f in r[k]._fields
+                        if not _same_bits(getattr(g[k], f),
+                                          getattr(r[k], f))]
+            elif not _same_bits(g[k], r[k]):
+                out.append(k)
+    return out
+
+
+def _assembly_case(n: int, k: int, seed: int):
+    """Random inputs of the RHS assembly (``rhs._RHS_ASSEMBLE_FIELDS`` and
+    ``_FLAGS``) with n cells, 2n + 1 segments and n reaches, each gather
+    list [n, k] of random ids and pads: ``(floats, flags, ne, ns, nr)``."""
+    from shud_tpu_torch.core import rhs as R
+
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    ne, ns, nr = n, 2 * n + 1, n
+    dims = {"ne": ne, "ns": ns, "nr": nr}
+
+    def f(shape):
+        return torch.as_tensor(rng.uniform(0.1, 2.0, shape).astype(
+            np.float32), device=dev)
+
+    def i(lo, hi, shape):
+        return torch.as_tensor(rng.integers(lo, hi, shape), device=dev)
+
+    floats = [(key, f(shape), shape)
+              for group, shape in zip(R._RHS_ASSEMBLE_FIELDS,
+                                      (ne, (ne, 3), ns, nr))
+              for key in group]
+    flags = [("i_bc", i(0, 1, ne), ne), ("i_ss", i(0, 1, ne), ne),
+             ("seg_ele", i(0, ne, ns), ns), ("seg_riv", i(0, nr, ns), ns),
+             ("riv_bc", i(0, 1, nr), nr), ("riv_down", i(-1, nr, nr), nr),
+             ("riv_to_lake", i(-1, 0, nr), nr),
+             ("riv_outlet_code", i(-4, 1, nr), nr)]
+    for key, rows, pad in (("seg_to_ele", "ne", "ns"),
+                           ("seg_to_riv", "nr", "ns"),
+                           ("riv_to_down", "nr", "nr")):
+        t = i(0, dims[pad] + 1, (dims[rows], k))
+        flags.append((key, t, tuple(t.shape)))
+    return floats, flags, ne, ns, nr
+
+
+def test_row_sum_matches_torch_bitwise():
+    """The assembly's fixed-width sums (the three gather lists) are
+    torch's CUDA gather_sum bit for bit at every row width 1-128 and
+    wider with few and many rows: in the kernel's own order up to
+    edge.SUM_WIDTH_MAX (127) wide, over up to 64 threads a row, and
+    through torch's own sums beyond (128-600 wide, where torch loads a row
+    four at a time): one launch where every list is in order, two where
+    one is not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+    from shud_tpu_torch.core.device import gather_sum
+
+    routes = {True: 0, False: 0}
+    for k in list(range(1, 129)) + [129, 130, 200, 600]:
+        for n in (3, 300, 4096):
+            floats, flags, ne, ns, nr = _assembly_case(n, k, 1000 * k + n)
+            lists = {key: t for key, t, _ in flags[-3:]}
+            in_order = E.sum_in_order(lists["seg_to_ele"])
+            assert in_order == (k <= 127)
+            assert not in_order or E.sum_threads(k, n) <= 64
+            E.reset_launch_counts()
+            _, _, rows = R._rhs_assemble(floats, flags, ne, ns, nr)
+            torch.cuda.synchronize()
+            got = R._rhs_rows(rows, ne, ns, nr)
+            assert E.device_launch_counts()["rhs_assemble"] == (
+                1 if in_order else 2), (k, n)
+            assert all(bool(torch.isfinite(got[key]).all()) for key in
+                       ("q_seg_surf", "q_seg_sub", "q_riv_down"))
+            for key, row, neg in R._RHS_GIVEN:
+                x = -got[row] if neg else got[row]
+                want = gather_sum(x, lists[key])
+                out = {("seg_to_ele", "q_seg_surf"): "q_e2r_surf",
+                       ("seg_to_ele", "q_seg_sub"): "q_e2r_sub",
+                       ("seg_to_riv", "q_seg_surf"): "q_riv_surf",
+                       ("seg_to_riv", "q_seg_sub"): "q_riv_sub",
+                       ("riv_to_down", "q_riv_down"): "q_riv_up"}[key, row]
+                assert _same_bits(got[out], want), (k, n, out)
+            routes[in_order] += 1
+    assert routes == {True: 3 * 127, False: 3 * 5}
+
+
+@pytest.mark.parametrize("variant", RHS_VARIANTS)
+def test_rhs_kernels_match_plain_bitwise(variant):
+    """dY, every diagnostic and every intermediate linearize saves of the
+    kernel route (_rhs_kernels) are its plain version's (_rhs_plain,
+    PyTorch on the card) bit for bit, with the edge fluxes of edge_flux
+    and of edge_coeff (whose coefficients too), both boundary modes, on
+    states with exact ties, two seeds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import rhs as R
+
+    for seed in (5, 6):
+        dm, fs, y, _, _, _ = _tangent_case(variant, seed)
+        assert R._rhs_on_kernels(dm, fs, y, False)
+        for cb in (True, False):
+            for route in ("flux", "coeff"):
+                c_k = None if route == "flux" else []
+                c_p = None if route == "flux" else []
+                got = R._rhs(dm, fs, y, cb, False, c_k)
+                ref = R._rhs_plain(dm, fs, y, cb, False, c_p)
+                torch.cuda.synchronize()
+                parted = _rhs_parted(got, ref)
+                assert not parted, (seed, cb, route, parted)
+                if c_k is not None:
+                    assert all(_same_bits(a, b) for a, b in zip(c_k, c_p))
+
+
+@pytest.mark.parametrize("variant", RHS_VARIANTS)
+def test_linearize_rhs_kernels_match_plain_bitwise(variant, monkeypatch):
+    """rhs.linearize and rhs_full on the RHS kernels against the same on
+    the plain RHS (the route before the kernels): dY, J·v and every
+    diagnostic bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, y, v, cb, _ = _tangent_case(variant, 5)
+    dy_k, jvp_k = R.linearize(dm, fs, 0.0, y, cb)
+    jv_k = jvp_k(v)
+    full_k = R.rhs_full(dm, fs, 0.0, y, cb)
+    monkeypatch.setattr(R, "_rhs_on_kernels", lambda *a: False)
+    dy_p, jvp_p = R.linearize(dm, fs, 0.0, y, cb)
+    jv_p = jvp_p(v)
+    full_p = R.rhs_full(dm, fs, 0.0, y, cb)
+    torch.cuda.synchronize()
+    assert _same_bits(dy_k, dy_p)
+    assert _same_bits(jv_k, jv_p), _parted({"jv": jv_k}, {"jv": jv_p})
+    assert bool(torch.isfinite(jv_k).all())
+    assert not _rhs_parted((full_k[0], full_k[1]), (full_p[0], full_p[1]))
+
+
+def test_rhs_kernels_one_launch_per_call():
+    """One device launch of each RHS kernel a linearize or rhs_full call,
+    none a J·v; captured in a CUDA graph, the device counters count each
+    replay (the wrappers' only the capture), and a replay's dY is the
+    eager call's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, y, v, cb, _ = _tangent_case("plain", 5)
+    torch.cuda.synchronize()
+    E.reset_launch_counts()
+    dy, jvp = R.linearize(dm, fs, 0.0, y, cb)
+    for _ in range(3):
+        jvp(v)
+    R.rhs_full(dm, fs, 0.0, y, cb)
+    torch.cuda.synchronize()
+    want = {"edge_flux": 1, "edge_coeff": 1, "edge_apply": 3,
+            "tangent_cell": 1, "tangent_reach": 1, "rhs_cell": 2,
+            "rhs_assemble": 2}
+    assert E.device_launch_counts() == want
+    assert E.launch_counts == want
+
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        R.linearize(dm, fs, 0.0, y, cb)  # warm-up off the capture
+        with torch.cuda.graph(graph, stream=stream):
+            dy_g, _ = R.linearize(dm, fs, 0.0, y, cb)
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+    E.reset_launch_counts()
+    for _ in range(4):
+        graph.replay()
+    torch.cuda.synchronize()
+    n = E.device_launch_counts()
+    assert (n["rhs_cell"], n["rhs_assemble"], n["edge_coeff"]) == (4, 4, 4)
+    assert E.launch_counts["rhs_cell"] == E.launch_counts["rhs_assemble"] == 0
+    assert _same_bits(dy_g, dy)
+
+
+def test_rhs_kernels_wide_lists_match_plain_bitwise():
+    """A mesh whose gather lists are wider than the order the assembly
+    keeps (padded to 130 columns) stays on the RHS kernels: torch sums
+    those lists between two launches of the assembly, and dY, diag and
+    saved are the plain RHS's bit for bit, both edge routes and boundary
+    modes; the counters give the route and the number of torch sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+    from torch_variants import widen_lists
+
+    dm, fs, y, _, _, _ = _tangent_case("branched", 5)
+    for names in (("seg_to_ele",), ("seg_to_riv", "riv_to_down"),
+                  ("seg_to_ele", "seg_to_riv", "riv_to_down")):
+        wm = widen_lists(dm, names)
+        E.reset_launch_counts()
+        for cb in (True, False):
+            for route in ("flux", "coeff"):
+                c_k = None if route == "flux" else []
+                c_p = None if route == "flux" else []
+                got = R._rhs(wm, fs, y, cb, False, c_k)
+                assert trace.counters()["shud.edge.rhs_kernels"] == 1
+                assert (trace.counters()["shud.edge.rhs_torch_sums"]
+                        == len(names))
+                ref = R._rhs_plain(wm, fs, y, cb, False, c_p)
+                torch.cuda.synchronize()
+                parted = _rhs_parted(got, ref)
+                assert not parted, (names, cb, route, parted)
+                if c_k is not None:
+                    assert all(_same_bits(a, b) for a, b in zip(c_k, c_p))
+        n = E.device_launch_counts()
+        assert (n["rhs_cell"], n["rhs_assemble"]) == (4, 8), names
+
+
+def test_rhs_wrappers_refuse_bad_inputs():
+    """A CUDA input the RHS kernels cannot take raises (no fallback): CPU
+    tensors, float64, another length or shape; nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, y, _, cb, _ = _tangent_case("plain", 5)
+    ne, ns, nr = dm.num_ele, dm.num_seg, dm.num_riv
+    cell, flags, src = R._rhs_cell_inputs(dm, fs, y)
+    _, diag, saved = R._rhs_plain(dm, fs, y, cb, False)
+    src.update({k: diag[k] for k in diag}, gw=saved["gw"],
+               q_surf=diag["q_esurf"], q_sub=diag["q_esub"])
+    floats, aflags = R._rhs_assemble_inputs(dm, src)
+
+    def swap(fields, name, t):
+        return [(k, t if k == name else x, *rest)
+                for k, x, *rest in fields]
+
+    n0 = dict(E.launch_counts)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        E.rhs_cell([(k, t.cpu()) for k, t in cell],
+                   [(k, t.cpu()) for k, t in flags])
+    with pytest.raises(ValueError, match="float32"):
+        E.rhs_cell(swap(cell, "beta", dm.beta.double()), flags)
+    with pytest.raises(ValueError, match="shape"):
+        E.rhs_cell(swap(cell, "theta_fc", dm.theta_fc[:-1]), flags)
+    with pytest.raises(ValueError, match="int64"):
+        E.rhs_cell(cell, swap(flags, "i_bc", dm.i_bc.int()))
+    with pytest.raises(ValueError, match="float32"):
+        E.rhs_assemble(swap(floats, "area", dm.area.double()), aflags,
+                       ne, ns, nr)
+    with pytest.raises(ValueError, match="shape"):
+        E.rhs_assemble(swap(floats, "q_surf", diag["q_esurf"][:, :2]),
+                       aflags, ne, ns, nr)
+    with pytest.raises(ValueError, match="on cpu"):
+        E.rhs_assemble(swap(floats, "riv_length", dm.riv_length.cpu()),
+                       aflags, ne, ns, nr)
+    # a list whose sum's order the kernel does not keep needs torch's sums,
+    # both of a pair, each [ne] or [nr] float32
+    wide = dm.lists.seg_to_ele.new_full((ne, 130), ns)
+    wflags = [(k, wide if k == "seg_to_ele" else t, tuple(wide.shape)
+               if k == "seg_to_ele" else n) for k, t, n in aflags]
+    with pytest.raises(ValueError, match="give its sums"):
+        E.rhs_assemble(floats, wflags, ne, ns, nr)
+    half = [diag["q_e2r_surf"], None, None, None, None]
+    with pytest.raises(ValueError, match="in part"):
+        E.rhs_assemble(floats, wflags, ne, ns, nr, half)
+    with pytest.raises(ValueError, match="shape"):
+        E.rhs_assemble(floats, wflags, ne, ns, nr,
+                       [diag["q_e2r_surf"][:-1], diag["q_e2r_sub"], None,
+                        None, None])
+    with pytest.raises(ValueError, match="float32"):
+        E.rhs_assemble(floats, wflags, ne, ns, nr,
+                       [diag["q_e2r_surf"].double(), diag["q_e2r_sub"],
+                        None, None, None])
+    # the kernels carry no reverse-mode derivative
+    with pytest.raises(RuntimeError, match="reverse mode"):
+        R.rhs(dm, fs, 0.0, y.clone().requires_grad_(True), cb)
+    assert E.launch_counts == n0
+
+
+def test_lake_mesh_keeps_plain_rhs(monkeypatch):
+    """A mesh with a lake keeps the plain RHS on the card (no RHS kernel
+    launch, the route refused), a lake-free one takes the kernels, and the
+    counter shud.edge.rhs_kernels says which."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core import rhs as R
+
+    dm, fs, y, _, cb, _ = _tangent_case("lake", 5)
+    assert dm.num_lake > 0 and not R._rhs_on_kernels(dm, fs, y, False)
+    E.reset_launch_counts()
+    R.rhs_full(dm, fs, 0.0, y, cb)
+    torch.cuda.synchronize()
+    assert trace.counters()["shud.edge.rhs_kernels"] == 0
+    n = E.device_launch_counts()
+    assert (n["rhs_cell"], n["rhs_assemble"], n["edge_flux"]) == (0, 0, 1)
+    _tangent_case("plain", 5)
+    assert trace.counters()["shud.edge.rhs_kernels"] == 1
 
 
 @pytest.fixture(scope="module", params=("plain", "lake", "branched"))
@@ -502,9 +827,11 @@ def test_sharded_rhs_with_kernels():
             ref, got = p[key].astype(np.float64), k[key].astype(np.float64)
             assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max(), key
         # the sharded driver builds its own factors (ShardRHS._tangent)
+        # and its own RHS (ShardRHS._rhs)
         assert k["launches"] == {"edge_flux": 1, "edge_coeff": 1,
                                  "edge_apply": 1, "tangent_cell": 0,
-                                 "tangent_reach": 0}
+                                 "tangent_reach": 0, "rhs_cell": 0,
+                                 "rhs_assemble": 0}
         assert p["launches"] == dict.fromkeys(k["launches"], 0)
 
 

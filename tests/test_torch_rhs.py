@@ -22,7 +22,7 @@ from shud_tpu_torch.core import rhs as TR  # noqa: E402
 from shud_tpu_torch.core.device import to_torch  # noqa: E402
 from shud_tpu_torch.core.state import ForcingSlice as TFS  # noqa: E402
 from torch_variants import (VARIANTS, meshes, random_inputs,  # noqa: E402
-                            scaled_err)
+                            scaled_err, widen_lists)
 
 DTYPES = {"f64": (jnp.float64, torch.float64, 1e-12),
           "f32": (jnp.float32, torch.float32, 2e-5)}
@@ -298,3 +298,201 @@ def test_split_driver_cell_factors_unchanged(variant):
                                   c[name].numpy()) <= 1e-12, name
             else:
                 assert not bool(getattr(tcu, field).abs().max()), name
+
+
+def _rhs_outputs():
+    """Every row the RHS kernels write, by name, and the edge kernel's
+    q_esurf beside the assembly's q_esub."""
+    return (set(TR._RHS_CELL_OUT) | set(TR._RHS_CELL_SUMS)
+            | set(TR._RHS_SEG_OUT) | set(TR._RHS_RIV_OUT)
+            | {"q_esurf", "q_esub"})
+
+
+@pytest.mark.parametrize("prec", sorted(DTYPES))
+@pytest.mark.parametrize("variant", ("bc", "branched", "ties"))
+def test_rhs_takes_plain_route_off_the_card(variant, prec, monkeypatch):
+    """On the CPU, in float32 and float64, ``_rhs`` is its plain version:
+    the kernel route is not reached, no kernel is counted, and the mesh's
+    set-up counter says so.  The kernels' rows name exactly what the plain
+    RHS puts in ``diag`` and ``saved`` apart from the lakes, the state's
+    slices and the cell update (whose fields are rows too)."""
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import edge as E
+
+    md_j, md_t, cb, fs, y, v = _lin_case(variant)
+    td = DTYPES[prec][1]
+    dm = to_torch(md_t, td, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a, dtype=td) for k, a in fs.items()})
+    yt = torch.tensor(y, dtype=td)
+
+    def refuse(*args):
+        raise AssertionError("the RHS kernel route on the CPU")
+
+    monkeypatch.setattr(TR, "_rhs_kernels", refuse)
+    assert not TR._rhs_on_kernels(dm, fs_t, yt, False)
+    E.reset_launch_counts()
+    dy, jvp = TR.linearize(dm, fs_t, 0.0, yt, cb)
+    jvp(torch.tensor(v, dtype=td))
+    dy_f, diag = TR.rhs_full(dm, fs_t, 0.0, yt, cb)
+    assert trace.counters()["shud.edge.rhs_kernels"] == 0
+    assert set(E.launch_counts.values()) == {0}
+    assert torch.equal(dy, dy_f)
+    _, _, saved = TR._rhs_plain(dm, fs_t, yt, cb, False)
+    lakes = {k for k in (*diag, *saved) if "lake" in k}
+    plain = (set(diag) | set(saved)) - lakes - {"sf", "us", "cu"}
+    assert plain | set(TR.CellUpdate._fields) == _rhs_outputs()
+    assert set(TR.CellUpdate._fields) <= set(TR._RHS_CELL_OUT)
+
+
+def _fake_rhs_kernels(m, fs, y, cb, calls=None):
+    """CPU stand-ins for ``edge.rhs_cell`` and ``edge.rhs_assemble``: each
+    checks its inputs as the wrapper does (names, dtypes, shapes) and
+    returns ``_rhs_plain``'s values in the kernel's layout.  The assembly
+    also checks that it is given torch's sums exactly of the lists
+    outside ``edge.sum_in_order``, equal to ``_rhs_plain``'s, and counts
+    its launches, first (pre) and proper, in *calls*."""
+    from shud_tpu_torch.core import edge as E
+    from shud_tpu_torch.core.device import gather_sum
+
+    dy, diag, saved = TR._rhs_plain(m, fs, y, cb, False)
+    vals = {**diag, **saved, **saved["cu"]._asdict()}
+    ne = m.num_ele
+    calls = {} if calls is None else calls
+
+    def cell(floats, flags):
+        assert [k for k, _ in floats] == list(TR._RHS_CELL_FIELDS)
+        assert [k for k, _ in flags] == ["i_bc"]
+        E._check_fields([(k, t, ne) for k, t in floats], y.dtype, y.device)
+        E._check_fields([(k, t, ne) for k, t in flags], torch.int64,
+                        y.device)
+        return torch.stack([vals[k] for k in TR._RHS_CELL_OUT])
+
+    def assemble(floats, flags, ne_, ns, nr, given=None, pre=False):
+        assert (ne_, ns, nr) == (ne, m.num_seg, m.num_riv)
+        assert [k for k, *_ in floats] == [
+            k for group in TR._RHS_ASSEMBLE_FIELDS for k in group]
+        assert [k for k, *_ in flags] == [
+            k for group in TR._RHS_ASSEMBLE_FLAGS for k in group]
+        E._check_fields(floats, y.dtype, y.device)
+        E._check_fields(flags, torch.int64, y.device)
+        calls["pre" if pre else "assemble"] = calls.get(
+            "pre" if pre else "assemble", 0) + 1
+        rows = torch.cat([vals[k] for k in TR._RHS_CELL_SUMS
+                          + TR._RHS_SEG_OUT + TR._RHS_RIV_OUT])
+        if pre:
+            return None, None, rows
+        given = [None] * 5 if given is None else given
+        for (k, row, neg), t in zip(TR._RHS_GIVEN, given):
+            lst = getattr(m.lists, k)
+            assert (t is None) == E.sum_in_order(lst), k
+            if t is not None:
+                want = gather_sum(-vals[row] if neg else vals[row], lst)
+                assert torch.equal(t, want), (k, row)
+        return dy.clone(), vals["q_esub"].clone(), rows
+
+    return cell, assemble
+
+
+@pytest.mark.parametrize("prec", sorted(DTYPES))
+@pytest.mark.parametrize("variant", ("bc", "branched"))
+def test_rhs_kernel_route_keeps_plain_layout(variant, prec, monkeypatch):
+    """``_rhs_kernels`` with the two RHS kernels replaced by CPU
+    stand-ins that return the plain values in the kernels' layout: the
+    inputs it hands them resolve to the state, forcing, mesh, cell rows
+    and edge fluxes of the right dtype and shape, and it returns dY,
+    ``diag``, ``saved`` and the edge coefficients equal to
+    ``_rhs_plain``'s, key for key, through both edge routes."""
+    from shud_tpu_torch.core import edge as E
+
+    md_j, md_t, cb, fs, y, _ = _lin_case(variant)
+    td = DTYPES[prec][1]
+    dm = to_torch(md_t, td, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a, dtype=td) for k, a in fs.items()})
+    yt = torch.tensor(y, dtype=td)
+    cell, assemble = _fake_rhs_kernels(dm, fs_t, yt, cb)
+    monkeypatch.setattr(E, "rhs_cell", cell)
+    monkeypatch.setattr(E, "rhs_assemble", assemble)
+    for coeffs in (None, []):
+        ref_c = None if coeffs is None else []
+        got = TR._rhs_kernels(dm, fs_t, yt, cb, coeffs)
+        ref = TR._rhs_plain(dm, fs_t, yt, cb, False, ref_c)
+        assert torch.equal(got[0], ref[0])
+        for g, r in zip(got[1:], ref[1:]):
+            assert set(g) == set(r)
+            for k in r:
+                a, b = (tuple(x) if k == "cu" else (x,)
+                        for x in (g[k], r[k]))
+                assert all(torch.equal(p, q) for p, q in zip(a, b)), k
+        if coeffs is not None:
+            assert len(coeffs) == len(ref_c) == 6
+            assert all(torch.equal(p, q) for p, q in zip(coeffs, ref_c))
+
+
+@pytest.mark.parametrize("prec", sorted(DTYPES))
+@pytest.mark.parametrize("names", (("seg_to_ele",),
+                                   ("seg_to_riv", "riv_to_down")))
+def test_rhs_kernel_route_sums_wide_lists_in_torch(names, prec,
+                                                   monkeypatch):
+    """A gather list wider than the order the assembly keeps (130 columns)
+    keeps the kernel route: ``_rhs_kernels`` launches the assembly twice
+    (first the rows its sums read), hands it torch's sums of exactly those
+    lists, states how many in ``shud.edge.rhs_torch_sums``, and returns
+    ``_rhs_plain``'s values key for key."""
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import edge as E
+
+    md_j, md_t, cb, fs, y, _ = _lin_case("branched")
+    td = DTYPES[prec][1]
+    dm = widen_lists(to_torch(md_t, td, "cpu"), names)
+    assert [E.sum_in_order(getattr(dm.lists, k)) for k in names] == [
+        False] * len(names)
+    fs_t = TFS(**{k: torch.tensor(a, dtype=td) for k, a in fs.items()})
+    yt = torch.tensor(y, dtype=td)
+    calls = {}
+    cell, assemble = _fake_rhs_kernels(dm, fs_t, yt, cb, calls)
+    monkeypatch.setattr(E, "rhs_cell", cell)
+    monkeypatch.setattr(E, "rhs_assemble", assemble)
+    got = TR._rhs_kernels(dm, fs_t, yt, cb)
+    ref = TR._rhs_plain(dm, fs_t, yt, cb, False)
+    assert calls == {"pre": 1, "assemble": 1}
+    assert trace.counters()["shud.edge.rhs_torch_sums"] == len(names)
+    assert torch.equal(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        assert set(g) == set(r)
+        for k in r:
+            a, b = (tuple(x) if k == "cu" else (x,) for x in (g[k], r[k]))
+            assert all(torch.equal(p, q) for p, q in zip(a, b)), k
+
+
+@pytest.mark.parametrize("case", ("card", "off_card", "lake",
+                                  "exact_parity", "transform", "autograd"))
+def test_rhs_route_decision(case, monkeypatch):
+    """Where ``_rhs`` takes the RHS kernels, with the edge kernels' route
+    stood in for on the CPU: a lake-free mesh there takes them, and so
+    does no call off that route, on a lake mesh, on the absolute-head
+    oracle or inside a ``torch.func`` transform; a call autograd would
+    record there is refused, as ``edge.edge_fluxes`` refuses it."""
+    md_j, md_t, cb, fs, y, v = _lin_case("lake" if case == "lake" else "bc")
+    dm = to_torch(md_t, torch.float32, "cpu")
+    fs_t = TFS(**{k: torch.tensor(a, dtype=torch.float32)
+                  for k, a in fs.items()})
+    yt = torch.tensor(y, dtype=torch.float32)
+    if case != "off_card":
+        monkeypatch.setattr(TR, "_on_kernels", lambda m, x: True)
+    if case == "autograd":
+        with pytest.raises(RuntimeError, match="reverse mode"):
+            TR._rhs_on_kernels(dm, fs_t, yt.requires_grad_(True), False)
+        return
+    if case == "transform":
+        seen = []
+
+        def f(yy):
+            seen.append(TR._rhs_on_kernels(dm, fs_t, yy, False))
+            return yy
+
+        torch.func.jvp(f, (yt,), (torch.ones_like(yt),))
+        assert seen == [False]
+        return
+    want = case == "card"
+    assert TR._rhs_on_kernels(dm, fs_t, yt,
+                              case == "exact_parity") == want

@@ -116,6 +116,22 @@ def with_bc(md):
     return dataclasses.replace(md, i_bc=i_bc, i_ss=i_ss, riv_bc=riv_bc)
 
 
+def widen_lists(dm, names, k: int = 130):
+    """The device mesh *dm* with each gather list of *names* padded to *k*
+    columns with the index of its appended zero: the same sums, wider than
+    the order the RHS kernels keep (``edge.sum_in_order``)."""
+    import torch
+
+    pads = {"seg_to_ele": dm.num_seg, "seg_to_riv": dm.num_seg,
+            "riv_to_down": dm.num_riv}
+    lists = dm.lists
+    for name in names:
+        t = getattr(lists, name)
+        pad = t.new_full((t.shape[0], k - t.shape[1]), pads[name])
+        lists = lists._replace(**{name: torch.cat([t, pad], dim=1)})
+    return dataclasses.replace(dm, lists=lists)
+
+
 def mega_inputs(md, seed: int):
     """(forcing dict, state, tangent) as float32 numpy for the megakernel
     tests: non-unit fu_surf/fu_sub, BC values, and a state with exact ties
