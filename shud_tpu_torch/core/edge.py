@@ -19,15 +19,15 @@ Three functions, each with a plain PyTorch version and a CUDA kernel
 * ``edge_apply``: that multiply-add for one tangent (one J·v).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
-launches the kernel or raises.  The solver's linearization
-(``rhs.linearize``, once per Newton iteration) calls ``edge_coeff`` in its
-primal and ``edge_apply`` once per Krylov vector, as JAX's ``custom_jvp``
-does.  ``edge_fluxes`` is what ``rhs`` calls: primal-only calls go to
-``edge_flux``; under ``torch.func.jvp`` (the reference route the hook is
-held against) it goes through ``EdgeFluxFunction``, whose forward is
-``edge_coeff`` and whose ``jvp`` is ``edge_apply``.  The tangent follows
-JAX's conventions (0.5 at ``maximum`` ties, select at ``where``), so it
-equals ``jax.jvp`` of the reference's XLA path.
+calls the library directly on torch's current stream, as every kernel of
+the port is launched.  The solver's linearization (``rhs.linearize``,
+once per Newton iteration) calls ``edge_coeff`` in its primal and
+``edge_apply`` once per Krylov vector, as JAX's ``custom_jvp`` does; that
+hand linearization is the port's one J·v.  The tangent follows JAX's
+conventions (0.5 at ``maximum`` ties, select at ``where``), so it equals
+``jax.jvp`` of the reference's XLA path.  No kernel runs inside a
+``torch.func`` transform, and a kernel call that autograd would record
+raises: ``kernels_may_run`` keeps that rule for every kernel family.
 
 Beside them, the launches of the two kernels of ``csrc/edge_tangent.cu``
 (``tangent_cell``, ``tangent_reach``): the rest of ``rhs.linearize``'s
@@ -240,6 +240,21 @@ def on_cpu(*tensors, what: str = "edge kernels") -> bool:
     raise ValueError(f"{what} take CPU or CUDA tensors, got {devs}")
 
 
+def kernels_may_run(*tensors) -> bool:
+    """The one rule between the CUDA kernels and torch's transforms: False
+    inside a ``torch.func`` transform, where no kernel runs (the edge path
+    takes its plain RHS there, whose derivative the transform takes; the
+    mega path refuses); raises where autograd would record a call on
+    *tensors*, since the kernels have no reverse-mode derivative.  J·v is
+    the hand linearization's (``rhs.linearize``, ``mega.linearize_mega``)."""
+    if torch._C._are_functorch_transforms_active():
+        return False
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("the CUDA kernels have no reverse-mode "
+                           "derivative; reverse mode is not supported")
+    return True
+
+
 def _check(et, fields):
     """Validate what the kernels read: one CUDA device, float32, [Ne] and
     [Ne,3] shapes, contiguous."""
@@ -270,62 +285,22 @@ def _raise_if(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _table_list(et):
     return [et.nabr, et.edge, et.dist, et.avg_rough, et.dzs, et.dzb, et.d2e,
             et.m_int, et.m_bnd, et.dep, et.rough]
 
 
-# The launches are dispatcher ops (torch.library.custom_op), so that inside
-# torch.func transforms they receive plain tensors with storage: the
-# functorch wrappers of the tangents and saved coefficients have none.
-
-
-@torch.library.custom_op("shud_tpu_torch::edge_flux", mutates_args=(),
-                         device_types="cuda")
-def _edge_flux_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
-                  tables: list[torch.Tensor],
-                  close_boundary: bool) -> list[torch.Tensor]:
-    lib = load_library()
-    outs = [torch.empty_like(tables[1]) for _ in range(2)]
-    err = lib.shud_edge_flux(*_ptrs(sf, gw, kh, *tables, *outs),
-                             _counts.pointer("edge_flux", sf.device),
-                             sf.shape[0], int(close_boundary), _stream())
-    _raise_if(err, "edge_flux")
-    launch_counts["edge_flux"] += 1
-    return outs
-
-
-@torch.library.custom_op("shud_tpu_torch::edge_coeff", mutates_args=(),
-                         device_types="cuda")
-def _edge_coeff_op(sf: torch.Tensor, gw: torch.Tensor, kh: torch.Tensor,
-                   tables: list[torch.Tensor],
-                   close_boundary: bool) -> list[torch.Tensor]:
-    lib = load_library()
-    outs = [torch.empty_like(tables[1]) for _ in range(8)]
-    err = lib.shud_edge_coeff(*_ptrs(sf, gw, kh, *tables, *outs),
-                              _counts.pointer("edge_coeff", sf.device),
-                              sf.shape[0], int(close_boundary), _stream())
-    _raise_if(err, "edge_coeff")
-    launch_counts["edge_coeff"] += 1
-    return outs
-
-
-@torch.library.custom_op("shud_tpu_torch::edge_apply", mutates_args=(),
-                         device_types="cuda")
-def _edge_apply_op(tsf: torch.Tensor, tgw: torch.Tensor, tkh: torch.Tensor,
-                   nabr: torch.Tensor,
-                   coeffs: list[torch.Tensor]) -> list[torch.Tensor]:
-    lib = load_library()
-    outs = [torch.empty_like(coeffs[0]) for _ in range(2)]
-    err = lib.shud_edge_apply(*_ptrs(tsf, tgw, tkh, nabr, *coeffs, *outs),
-                              _counts.pointer("edge_apply", tsf.device),
-                              tsf.shape[0], _stream())
-    _raise_if(err, "edge_apply")
-    launch_counts["edge_apply"] += 1
+def _launch(name, ins, n_out, et, *args):
+    """One call of the edge kernel *name* on torch's current stream: the
+    addresses of *ins* and of *n_out* new ``[Ne,3]`` outputs, its launch
+    counter, then *args*."""
+    dev = et.edge.device
+    outs = tuple(torch.empty_like(et.edge) for _ in range(n_out))
+    err = getattr(load_library(), f"shud_{name}")(
+        *_ptrs(*ins, *outs), _counts.pointer(name, dev), *args,
+        torch._C._cuda_getCurrentRawStream(dev.index))
+    _raise_if(err, name)
+    launch_counts[name] += 1
     return outs
 
 
@@ -334,8 +309,8 @@ def edge_flux(sf, gw, kh, et, close_boundary: bool):
     if on_cpu(sf, gw, kh, et.dep):
         return edge_flux_plain(sf, gw, kh, et, close_boundary)
     _check(et, [("sf", sf), ("gw", gw), ("kh", kh)])
-    return tuple(_edge_flux_op(sf, gw, kh, _table_list(et),
-                               bool(close_boundary)))
+    return _launch("edge_flux", [sf, gw, kh, *_table_list(et)], 2, et,
+                   sf.shape[0], int(close_boundary))
 
 
 def edge_coeff(sf, gw, kh, et, close_boundary: bool):
@@ -343,8 +318,8 @@ def edge_coeff(sf, gw, kh, et, close_boundary: bool):
     if on_cpu(sf, gw, kh, et.dep):
         return edge_coeff_plain(sf, gw, kh, et, close_boundary)
     _check(et, [("sf", sf), ("gw", gw), ("kh", kh)])
-    return tuple(_edge_coeff_op(sf, gw, kh, _table_list(et),
-                                bool(close_boundary)))
+    return _launch("edge_coeff", [sf, gw, kh, *_table_list(et)], 8, et,
+                   sf.shape[0], int(close_boundary))
 
 
 def edge_apply(coeffs, tsf, tgw, tkh, et):
@@ -354,7 +329,8 @@ def edge_apply(coeffs, tsf, tgw, tkh, et):
     names = ("s_i", "s_j", "g1", "g2", "k_i", "k_j")
     _check(et, [("tsf", tsf), ("tgw", tgw), ("tkh", tkh)]
            + list(zip(names, coeffs)))
-    return tuple(_edge_apply_op(tsf, tgw, tkh, et.nabr, list(coeffs)))
+    return _launch("edge_apply", [tsf, tgw, tkh, et.nabr, *coeffs], 2, et,
+                   tsf.shape[0])
 
 
 def _check_fields(fields, dtype, device):
@@ -520,50 +496,3 @@ def sum_in_order(lst: torch.Tensor) -> bool:
     gather list *lst* (``[n, k]``); where not, torch sums it
     (``rhs._rhs_assemble``)."""
     return lst.shape[1] <= SUM_WIDTH_MAX
-
-
-# ---------------------------------------------------------------------------
-# forward-mode derivative and the RHS entry point
-# ---------------------------------------------------------------------------
-
-
-class EdgeFluxFunction(torch.autograd.Function):
-    """Edge fluxes with their exact tangent: ``forward`` runs the coefficient
-    kernel (primal + six coefficients), ``jvp`` the apply kernel."""
-
-    @staticmethod
-    def forward(sf, gw, kh, et, close_boundary):
-        return edge_coeff(sf, gw, kh, et, close_boundary)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.et = inputs[3]
-        ctx.mark_non_differentiable(*output[2:])
-        ctx.save_for_forward(*output[2:])
-
-    @staticmethod
-    def jvp(ctx, tsf, tgw, tkh, _t_et, _t_cb):
-        coeffs = ctx.saved_tensors
-        ne = coeffs[0].shape[0]
-        tsf, tgw, tkh = (coeffs[0].new_zeros(ne) if t is None
-                         else t.contiguous() for t in (tsf, tgw, tkh))
-        tqs, tqb = edge_apply(coeffs, tsf, tgw, tkh, ctx.et)
-        return (tqs, tqb) + (None,) * 6
-
-
-def edge_fluxes(et, sf, gw, kh, close_boundary: bool):
-    """What the RHS calls: ``(q_surf, q_sub)`` [Ne,3] through the kernels.
-
-    Inside a ``torch.func`` transform (the solver's J·v) the call goes
-    through ``EdgeFluxFunction``; otherwise straight to the primal kernel.
-    The kernels carry no reverse-mode derivative, so a call that autograd
-    would record is refused rather than silently cut from the graph."""
-    # the same test autograd.Function.apply makes to route functorch calls
-    if torch._C._are_functorch_transforms_active():
-        return EdgeFluxFunction.apply(sf, gw, kh, et, close_boundary)[:2]
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (sf, gw, kh)):
-        raise RuntimeError("the edge kernels have a forward-mode derivative "
-                           "only (torch.func.jvp); reverse mode is not "
-                           "supported")
-    return edge_flux(sf, gw, kh, et, close_boundary)

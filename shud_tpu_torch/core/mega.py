@@ -29,17 +29,17 @@ path's ``absolute`` gives 1 there).
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.  Each is one cooperative launch of the
 fused kernel (``csrc/mega.cu``), whose grid ``launch_plan`` sizes; there
-is no fallback.  The tables are
-checked once (``MegaTables.to``), a forcing once (``pack_forcing``), and a
-call checks only its states; outside a ``torch.func`` transform it calls
-the library directly with pointers and scratch cached on the tables.
+is no fallback.  The tables are checked once (``MegaTables.to``), a
+forcing once (``pack_forcing``), and a call checks only its states, then
+calls the library directly with pointers and scratch cached on the
+tables.
 
 The solver linearizes once per Newton iteration (``linearize_mega``, its
 ``linearize`` hook): one RHS call, then one tangent call per Krylov
 vector, as ``jax.linearize`` with the custom JVP rule gives the JAX
-solver.  ``rhs_mega`` serves callers inside ``torch.func.jvp`` through
-``MegaFunction``, whose forward launches the RHS kernel and whose ``jvp``
-the tangent kernel.
+solver.  That is the path's one J·v: ``rhs_mega`` refuses a call inside a
+``torch.func`` transform, on every device, since autodiff of the plain
+version would not give the hand tangent (``_dabs``).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ from shud_tpu_torch.config import EPSILON, GRAV, MAXYSURF, ZERO
 from shud_tpu_torch.core.device import _fixed_width_lists
 from shud_tpu_torch.core.cuda_build import load_library
 from shud_tpu_torch.core.edge import (
-    _flux_sub_bnd, _flux_sub_int, _flux_surface_int, on_cpu)
+    _flux_sub_bnd, _flux_sub_int, _flux_surface_int, kernels_may_run, on_cpu)
 from shud_tpu_torch.core.launches import LaunchCounts
 from shud_tpu_torch.core.physics import cbrt
 
@@ -1319,9 +1319,10 @@ def _launch_state(t: MegaTables) -> _LaunchState:
 
 
 def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
-    """One kernel call outside a torch.func transform: the cached pointers
-    and scratch, three pointers set (and stage C's clock while ``trace`` is
+    """One kernel call: the states checked, the cached pointers and
+    scratch, three pointers set (and stage C's clock while ``trace`` is
     on), one C call."""
+    _check_states(t, *((y,) if ty is y else (y, ty)))
     st = _launch_state(t)
     if st.forcing is not forcing:
         st.bind(t, forcing)
@@ -1332,23 +1333,6 @@ def _launch_direct(name, t, forcing, y, ty, close_boundary, n_out):
     p[25] = st.clock[name] if trace.enabled() else 0
     err = st.fns[name](p, st.dims[name, bool(close_boundary)],
                        torch.cuda.current_stream(y.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
-    return out
-
-
-def _launch(name: str, y, ty, tensors, dims, n_out):
-    """One kernel call from a dispatcher op (inside a torch.func
-    transform): pointers and scratch made for the call; stage C untimed."""
-    lib = load_library()
-    out = y.new_empty(n_out)
-    scratch = y.new_empty(lib.shud_mega_scratch_floats(*dims[:4]))
-    ptrs = [t.data_ptr() for t in (*tensors, y, ty, out, scratch)]
-    ptrs += [_counts.pointer(name, y.device), 0]
-    err = getattr(lib, f"shud_{name}")(
-        (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * 12)(*dims),
-        torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -1376,65 +1360,20 @@ def reset_lake_stage(tables) -> None:
         st.lake_ns.zero_()
 
 
-# Inside torch.func transforms the launches are dispatcher ops
-# (torch.library.custom_op), so that they receive plain tensors with
-# storage; outside they call the library directly.
-
-
-@torch.library.custom_op("shud_tpu_torch::mega_rhs", mutates_args=(),
-                         device_types="cuda")
-def _mega_rhs_op(y: torch.Tensor, tensors: list[torch.Tensor],
-                 dims: list[int]) -> torch.Tensor:
-    return _launch("mega_rhs", y, y, tensors, dims, y.shape[0])
-
-
-@torch.library.custom_op("shud_tpu_torch::mega_jvp", mutates_args=(),
-                         device_types="cuda")
-def _mega_jvp_op(y: torch.Tensor, ty: torch.Tensor,
-                 tensors: list[torch.Tensor], dims: list[int]) -> torch.Tensor:
-    return _launch("mega_jvp", y, ty, tensors, dims, y.shape[0])
-
-
-@torch.library.custom_op("shud_tpu_torch::mega_diag", mutates_args=(),
-                         device_types="cuda")
-def _mega_diag_op(y: torch.Tensor, tensors: list[torch.Tensor],
-                  dims: list[int], n_out: int) -> torch.Tensor:
-    return _launch("mega_diag", y, y, tensors, dims, n_out)
-
-
-def _call(name, tables, forcing, y, ty, close_boundary, n_out):
-    """Check the states and launch *name*: directly, or through its
-    dispatcher op inside a torch.func transform."""
-    _check_states(tables, *((y,) if ty is y else (y, ty)))
-    if not torch._C._are_functorch_transforms_active():
-        return _launch_direct(name, tables, forcing, y, ty, close_boundary,
-                              n_out)
-    # inside a transform the forcing may arrive wrapped, a new tuple each
-    # call: it is checked here and passed to the op, which unwraps it
-    _check_forcing(tables, forcing)
-    tensors = [getattr(tables, n) for n in _KERNEL_TABLES] + list(forcing)
-    dims = list(_launch_state(tables).dims[name, bool(close_boundary)])
-    if name == "mega_rhs":
-        return _mega_rhs_op(y, tensors, dims)
-    if name == "mega_jvp":
-        return _mega_jvp_op(y, ty, tensors, dims)
-    return _mega_diag_op(y, tensors, dims, n_out)
-
-
 def mega_rhs(tables, forcing, y, close_boundary: bool):
     """dY of the flat state ``[3Ne + Nr + Nl]``: one kernel launch."""
     if on_cpu(y, tables.cell_f, what="mega kernels"):
         return mega_rhs_plain(tables, forcing, y, close_boundary)
-    return _call("mega_rhs", tables, forcing, y, y, close_boundary,
-                 y.shape[0])
+    return _launch_direct("mega_rhs", tables, forcing, y, y, close_boundary,
+                          y.shape[0])
 
 
 def mega_jvp(tables, forcing, y, ty, close_boundary: bool):
     """J(y)·ty, flat: one launch of the tangent kernel."""
     if on_cpu(y, ty, tables.cell_f, what="mega kernels"):
         return mega_jvp_plain(tables, forcing, y, ty, close_boundary)
-    return _call("mega_jvp", tables, forcing, y, ty, close_boundary,
-                 y.shape[0])
+    return _launch_direct("mega_jvp", tables, forcing, y, ty, close_boundary,
+                          y.shape[0])
 
 
 def mega_diag(tables, forcing, y, close_boundary: bool):
@@ -1442,46 +1381,19 @@ def mega_diag(tables, forcing, y, close_boundary: bool):
     launch."""
     if on_cpu(y, tables.cell_f, what="mega kernels"):
         return mega_diag_plain(tables, forcing, y, close_boundary)
-    return _call("mega_diag", tables, forcing, y, y, close_boundary,
-                 diag_size(tables))
-
-
-class MegaFunction(torch.autograd.Function):
-    """The RHS with its exact hand tangent, for callers inside a
-    ``torch.func`` transform: ``forward`` runs the RHS kernel, ``jvp`` the
-    tangent kernel (which recomputes the primal); with *kernel* False their
-    plain versions, on any device."""
-
-    @staticmethod
-    def forward(y, tables, forcing, close_boundary, kernel):
-        fn = mega_rhs if kernel else mega_rhs_plain
-        return fn(tables, forcing, y, close_boundary)
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        ctx.args = inputs[1:]
-        ctx.save_for_forward(inputs[0])
-
-    @staticmethod
-    def jvp(ctx, ty, _t_tables, _t_forcing, _t_cb, _t_kernel):
-        (y,) = ctx.saved_tensors
-        tables, forcing, close_boundary, kernel = ctx.args
-        fn = mega_jvp if kernel else mega_jvp_plain
-        return fn(tables, forcing, y, ty.contiguous(), close_boundary)
+    return _launch_direct("mega_diag", tables, forcing, y, y, close_boundary,
+                          diag_size(tables))
 
 
 def rhs_mega(tables, forcing, y, close_boundary: bool, kernel: bool = True):
-    """dY through the RHS kernel, and under ``torch.func.jvp`` through
-    ``MegaFunction``.  *kernel* False runs the plain versions with the same
-    hand tangent, on the card too: the reference path the kernels are held
-    against.  The kernels carry no reverse-mode derivative, so a call
-    autograd would record is refused."""
-    if torch._C._are_functorch_transforms_active():
-        return MegaFunction.apply(y, tables, forcing, close_boundary, kernel)
-    if torch.is_grad_enabled() and y.requires_grad:
-        raise RuntimeError("the mega kernels have a forward-mode derivative "
-                           "only (torch.func.jvp); reverse mode is not "
-                           "supported")
+    """dY through the RHS kernel.  *kernel* False runs its plain version,
+    on the card too: the reference path the kernels are held against.
+    Refused inside a ``torch.func`` transform, on every device: J·v is
+    ``linearize_mega``'s; and where autograd would record
+    (``edge.kernels_may_run``)."""
+    if not kernels_may_run(y):
+        raise RuntimeError("rhs_mega takes no torch.func transform: its "
+                           "J·v is linearize_mega's hand tangent")
     fn = mega_rhs if kernel else mega_rhs_plain
     return fn(tables, forcing, y, close_boundary)
 
@@ -1492,9 +1404,8 @@ def linearize_mega(tables, forcing, y, close_boundary: bool,
     the JAX solver (``shud_tpu/solver/bdf.py:174``) through the megakernel's
     custom JVP rule (``pallas_mega.py:1547-1570``): dY from one RHS call,
     and a function that gives J(y)·v from one tangent call per Krylov
-    vector, outside any ``torch.func`` transform.  Its values are those of
-    ``torch.func.jvp`` of ``rhs_mega``.  *kernel* False: the plain
-    versions."""
+    vector, outside any ``torch.func`` transform: dY is ``rhs_mega``'s and
+    J·v ``mega_jvp``'s.  *kernel* False: the plain versions."""
     rhs_fn, jvp_fn = ((mega_rhs, mega_jvp) if kernel
                       else (mega_rhs_plain, mega_jvp_plain))
     fy = rhs_fn(tables, forcing, y, close_boundary)

@@ -176,10 +176,13 @@ def flux_recharge(m, cu: CellUpdate, us, gw):
     return torch.where(skip, 0.0, qr)
 
 
-def _on_kernels(m, x) -> bool:
-    """The edge stencil runs the CUDA kernels: the mesh was built for them
-    and the state is float32 on CUDA."""
-    return m.edge_kernel and x.dtype == torch.float32 and x.is_cuda
+def _on_kernels(m, x, *more) -> bool:
+    """The edge stencil runs the CUDA kernels: the mesh was built for them,
+    the state *x* is float32 on CUDA, and no ``torch.func`` transform is
+    active (``edge.kernels_may_run``: inside one the plain versions carry
+    the derivative; a call autograd would record on *x* or *more* raises)."""
+    return (m.edge_kernel and x.dtype == torch.float32 and x.is_cuda
+            and edge_mod.kernels_may_run(x, *more))
 
 
 def edge_fluxes(m, cu: CellUpdate, sf, gw, lake_stg, close_boundary: bool,
@@ -206,17 +209,14 @@ def edge_fluxes(m, cu: CellUpdate, sf, gw, lake_stg, close_boundary: bool,
     if exact_parity:
         return _edge_fluxes_exact(m, cu, sf, gw, lake_stg, close_boundary)
     et = m.edge_tables
-    kernel = _on_kernels(m, sf)
+    kernel = _on_kernels(m, sf, gw, cu.eff_kh)
     if coeffs is not None:
         fn = edge_mod.edge_coeff if kernel else edge_mod.edge_coeff_plain
         q_surf_k, q_sub_k, *cs = fn(sf, gw, cu.eff_kh, et, close_boundary)
         coeffs.extend(cs)
-    elif kernel:
-        q_surf_k, q_sub_k = edge_mod.edge_fluxes(et, sf, gw, cu.eff_kh,
-                                                 close_boundary)
     else:
-        q_surf_k, q_sub_k = edge_mod.edge_flux_plain(sf, gw, cu.eff_kh, et,
-                                                     close_boundary)
+        fn = edge_mod.edge_flux if kernel else edge_mod.edge_flux_plain
+        q_surf_k, q_sub_k = fn(sf, gw, cu.eff_kh, et, close_boundary)
     if lake_stg.shape[0] == 0:
         z3 = torch.zeros_like(q_surf_k)
         return q_surf_k, q_sub_k, z3, z3
@@ -346,7 +346,7 @@ def _rhs(m, fs: ForcingSlice, y, close_boundary: bool, exact_parity: bool,
     ``shud.edge.rhs_kernels`` says which the last call outside a
     ``torch.func`` transform took."""
     kernels = _rhs_on_kernels(m, fs, y, exact_parity)
-    if not torch._C._are_functorch_transforms_active():
+    if edge_mod.kernels_may_run():
         trace.count("shud.edge.rhs_kernels", int(kernels))
     if kernels:
         return _rhs_kernels(m, fs, y, close_boundary, coeffs)
@@ -354,21 +354,12 @@ def _rhs(m, fs: ForcingSlice, y, close_boundary: bool, exact_parity: bool,
 
 
 def _rhs_on_kernels(m, fs: ForcingSlice, y, exact_parity: bool) -> bool:
-    """``_rhs`` runs the RHS kernels: the edge kernels' route (float32 on
-    CUDA) in the local-datum form, on a lake-free mesh, outside a
-    ``torch.func`` transform.  A lake mesh keeps the plain RHS; inside a
-    transform (the ``torch.func.jvp`` J·v) the plain RHS carries the
-    derivative, as ``edge.edge_fluxes`` hands the edge kernels to
-    ``EdgeFluxFunction`` there.  The kernels have no reverse-mode
-    derivative, so a call autograd would record on the route is refused,
-    as ``edge.edge_fluxes`` refuses it."""
-    if (exact_parity or m.num_lake > 0 or not _on_kernels(m, y)
-            or torch._C._are_functorch_transforms_active()):
-        return False
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (y, *fs)):
-        raise RuntimeError("the RHS kernels have no reverse-mode derivative;"
-                           " reverse mode is not supported")
-    return True
+    """``_rhs`` runs the RHS kernels: on the edge kernels' route
+    (``_on_kernels``, which also decides for transforms and autograd) in
+    the local-datum form, on a lake-free mesh.  A lake mesh keeps the
+    plain RHS."""
+    return (not (exact_parity or m.num_lake > 0)
+            and _on_kernels(m, y, *fs))
 
 
 def _rhs_plain(m, fs: ForcingSlice, y, close_boundary: bool,
@@ -970,11 +961,13 @@ def _lake_toparea_lin(m, lake_stg):
     return dta
 
 
-def _lake_bank_lin(m, sf, gw, lake_stg, cu, kh_gw):
+def _lake_bank_lin(m, sf, gw, lake_stg, eff_kh, kh_gw):
     """Tangent factors of ``edge_fluxes``' lake-bank edges [Ne,3]: the
     surface weir's d/d sf and d/d lake stage, the Darcy flux's d/d gw (own
-    cell, eff_kh through *kh_gw* included), d/d gw of the neighbour's
-    eff_kh, and d/d lake stage: ``(ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk)``."""
+    cell, eff_kh through *kh_gw* included), d/d of the neighbour's eff_kh,
+    and d/d lake stage: ``(ls_sf, ls_lk, lb_gw, half_k, lb_lk)``.
+    *eff_kh* covers the rows ``m.nb`` points at, the cells' own first (a
+    sharded rank appends its ghost rows)."""
     lk, nb = m.lk, m.nb
     isf = maximum(sf, 0.0)[:, None]
     lake_nb = lake_stg[lk]
@@ -987,7 +980,7 @@ def _lake_bank_lin(m, sf, gw, lake_stg, cu, kh_gw):
     dh = (gw_col - lake_nb) + m.edge_lake_dzb
     ym = ph.avg_y_gw(gw_col, lake_nb)
     grad = dh / m.dist_nb
-    km = 0.5 * (cu.eff_kh[:, None] + cu.eff_kh[nb])
+    km = 0.5 * (eff_kh[:sf.shape[0], None] + eff_kh[nb])
     live = ~(((dh > 0.0) & (gw_col <= 0.02))
              | ((dh < 0.0) & (lake_nb <= 0.02)))
     B = m.edge
@@ -995,10 +988,9 @@ def _lake_bank_lin(m, sf, gw, lake_stg, cu, kh_gw):
     lb_gw = torch.where(live, (km / m.dist_nb * ym + km * grad * 0.5
                                * ph.d_max(gw, 0.0)[:, None]) * B, 0.0) \
         + half_k * kh_gw[:, None]
-    lb_gwn = half_k * kh_gw[nb]
     lb_lk = torch.where(live, (-km / m.dist_nb * ym + km * grad * 0.5
                                * ph.d_max(lake_nb, 0.0)) * B, 0.0)
-    return ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk
+    return ls_sf, ls_lk, lb_gw, half_k, lb_lk
 
 
 def _reach_lin(m, rs, r_csa, r_per, r_hyd, s_down, s_out):
@@ -1215,8 +1207,9 @@ def _tangent(m, fs: ForcingSlice, s: dict, coeffs: list):
         # lake-bank edges, merged by mask (no fu_sub on their lake sums)
         is_lake_cell = m.i_lake > 0
         has_lake, lk, nb = m.has_lake, m.lk, m.nb
-        ls_sf, ls_lk, lb_gw, lb_gwn, lb_lk = _lake_bank_lin(
-            m, sf, gw, s["lake_stg"], cu, kh_gw)
+        ls_sf, ls_lk, lb_gw, half_k, lb_lk = _lake_bank_lin(
+            m, sf, gw, s["lake_stg"], cu.eff_kh, kh_gw)
+        lb_gwn = half_k * kh_gw[nb]
         lake_edge = has_lake & ~is_lake_cell[:, None]
         # lakes: evaporation clamp, bathymetry, the bucket's division
         area = s["lake_area"]

@@ -335,7 +335,8 @@ def linearize_surf(m, fs: ForcingSlice, t, sf, us0, gw0, riv0, lake0=None,
         m.seg_cwr, m.seg_length, m.depression[se])
     b_sf = w_i * ph.d_max(isf_raw, 0.0) * (1.0 - qi_sf + qx_sf)[se]
     if m.num_lake > 0:
-        ls_sf = _lake_bank_lin(m, sfc, gw0, lake_stg, cu, c["kh_gw"])[0]
+        ls_sf = _lake_bank_lin(m, sfc, gw0, lake_stg, cu.eff_kh,
+                               c["kh_gw"])[0]
     zero = torch.zeros_like(sf)
     et, lists, area = m.edge_tables, m.lists, m.area
 
@@ -382,8 +383,9 @@ def linearize_gw(m, fs: ForcingSlice, t, gw, sf0, us0, riv0, q_rech0,
     k_gw = torch.where(m.i_bc > 0, 0.0, ph.d_max(gw, 0.0))
     kh_gw = _cell_update_lin(m, sf0, us0, gw_bc)["kh_gw"]
     if m.num_lake > 0:
-        _, _, lb_gw, lb_gwn, _ = _lake_bank_lin(m, sf0, gw_bc, lake_stg, cu,
-                                                kh_gw)
+        _, _, lb_gw, half_k, _ = _lake_bank_lin(m, sf0, gw_bc, lake_stg,
+                                                cu.eff_kh, kh_gw)
+        lb_gwn = half_k * kh_gw[m.nb]
     se = m.seg_ele
     _, r_ye, r_k = ph.flux_r2e_gw_lin(*_seg_sub_args(m, gw_bc, cu.eff_kh,
                                                      riv0))
@@ -439,7 +441,7 @@ def linearize_lake(m, fs: ForcingSlice, t, lake_stg, sf0, us0, gw0,
     dl, (lake_c, gw_bc, cu, ev_raw, prcp, inflow, area) = _lake(
         m, fs, lake_stg, sf0, us0, gw0, q_lake_rivin0, close_boundary)
     k_lk = ph.d_max(lake_stg, 0.0)
-    _, ls_lk, _, _, lb_lk = _lake_bank_lin(m, sf0, gw_bc, lake_c, cu,
+    _, ls_lk, _, _, lb_lk = _lake_bank_lin(m, sf0, gw_bc, lake_c, cu.eff_kh,
                                            torch.zeros_like(gw_bc))
     lake_edge = m.has_lake & (m.i_lake <= 0)[:, None]
     c_lk = _lake_lin(m, lake_c, ev_raw, prcp, inflow, area)

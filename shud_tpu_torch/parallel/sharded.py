@@ -25,7 +25,11 @@ merged by mask as ``rhs.edge_fluxes`` merges them.
 send or a receive): one primal with ``edge_coeff`` per Newton iteration,
 then per Krylov vector one ``edge_apply``, one forward halo of the
 tangents of (sf, gw, effKH) and stage, one reverse halo of the partial
-tangents and, with lakes, one ``psum``, on the primal's rounds.
+tangents and, with lakes, one ``psum``, on the primal's rounds.  Its
+lake-bank, reach and lake-budget factors are ``core/rhs.py``'s
+(``_lake_bank_lin``, ``_reach_lin``, ``_lake_lin``) on views of the
+rank's blocks under the mesh's names; the validity masks of the padded
+rows multiply them here.
 """
 
 from __future__ import annotations
@@ -43,9 +47,9 @@ from shud_tpu_torch.core.device import (
     EdgeTables, _fixed_width_lists, gather_sum)
 from shud_tpu_torch.core.physics import maximum
 from shud_tpu_torch.core.rhs import (
-    _cell_update_lin, _lake_toparea, _lake_toparea_lin, _vertical_lin,
-    edge_fluxes, et_flux, flux_infiltration, flux_recharge, lake_cell_update,
-    update_element)
+    _cell_update_lin, _lake_bank_lin, _lake_lin, _lake_toparea, _reach_lin,
+    _vertical_lin, edge_fluxes, et_flux, flux_infiltration, flux_recharge,
+    lake_cell_update, update_element)
 from shud_tpu_torch.core.state import ForcingSlice
 from shud_tpu_torch.parallel.comm import Group
 from shud_tpu_torch.parallel.partition import ShardedMesh
@@ -209,6 +213,15 @@ class ShardRHS:
         self.has_lake = self.ev.has_lake[:npc]
         self.has_nb = t(has_nb)
         self.edge_kernel = bool(edge_kernel)
+        # what core/rhs.py's tangent factors read, under the mesh's names:
+        # the cell block's edge rows and the reach block
+        ev = self.ev
+        self.bank_view = types.SimpleNamespace(
+            lk=ev.lk[:npc], nb=ev.nb[:npc], edge=ev.edge[:npc],
+            dist_nb=ev.dist_nb[:npc], edge_lake_dzl=ev.edge_lake_dzl[:npc],
+            edge_lake_dzb=ev.edge_lake_dzb[:npc])
+        self.riv_view = types.SimpleNamespace(
+            **self.riv, riv_down=self.riv["has_down"].long() - 1)
 
         # ---- fixed-width gather lists of the local reductions ----
         sg, rv = sm.seg, sm.riv
@@ -555,30 +568,10 @@ class ShardRHS:
 
         # ---- lake-bank edges, merged by mask ----
         if nl > 0:
-            has_lake, lk = self.has_lake, ev.lk[:npc]
-            nb = ev.nb[:npc]
-            B, dist = ev.edge[:npc], ev.dist_nb[:npc]
-            isf = maximum(sf, 0.0)[:, None]
-            lake_nb = s["lake_stg"][lk]
-            lake_nsf = maximum(lake_nb, 0.0)
-            c_y0, c_yj = ph.weir_flow_jtoi_local_lin(
-                lake_nsf + ev.edge_lake_dzl[:npc], isf, lake_nsf, 0.6, B,
-                0.01)
-            ls_sf = c_yj * ph.d_max(sf, 0.0)[:, None]
-            ls_lk = c_y0 * ph.d_max(lake_nb, 0.0)
-            gw_col = gw[:, None]
-            dh = (gw_col - lake_nb) + ev.edge_lake_dzb[:npc]
-            ym = ph.avg_y_gw(gw_col, lake_nb)
-            grad = dh / dist
-            km = 0.5 * (cu.eff_kh[:, None] + s["kh_x"][nb])
-            live = ~(((dh > 0.0) & (gw_col <= 0.02))
-                     | ((dh < 0.0) & (lake_nb <= 0.02)))
-            half_k = torch.where(live, 0.5 * grad * ym * B, 0.0)
-            lb_gw = torch.where(live, (km / dist * ym + km * grad * 0.5
-                                       * ph.d_max(gw, 0.0)[:, None]) * B,
-                                0.0) + half_k * kh_gw[:, None]
-            lb_lk = torch.where(live, (-km / dist * ym + km * grad * 0.5
-                                       * ph.d_max(lake_nb, 0.0)) * B, 0.0)
+            has_lake, lk, nb = (self.has_lake, self.bank_view.lk,
+                                self.bank_view.nb)
+            ls_sf, ls_lk, lb_gw, half_k, lb_lk = _lake_bank_lin(
+                self.bank_view, sf, gw, s["lake_stg"], s["kh_x"], kh_gw)
             lake_edge = has_lake & ~is_lake_cell[:, None]
 
         # ---- segments ----
@@ -604,30 +597,12 @@ class ShardRHS:
         # ---- reaches ----
         bs, bw = riv["riv_bank_slope"], riv["riv_bottom_width"]
         topw_rs = ph.d_max(rs * bs * 2.0 + bw, 0.0) * (bs * 2.0)
-        csa_rs = ph.d_max(rs * (bw + rs * bs), 0.0) * (bw + 2.0 * rs * bs)
-        root = torch.sqrt(1.0 + bs**2)
-        per_rs = (ph.d_max(2.0 * ph.absolute(rs) * root + bw, 0.0)
-                  * 2.0 * ph.d_abs(rs) * root)
-        r_csa, r_per, r_hyd = s["r_csa"], s["r_per"], s["r_hyd"]
-        small = r_per <= ZERO
-        psafe = torch.where(small, 1.0, r_per)
-        hyd_rs = torch.where(small, 0.0, (csa_rs - r_hyd * per_rs) / psafe)
-        rough = riv["riv_avg_rough"]
-        has_down = riv["has_down"]
-        ma, mr, ms = ph.manning_equation_lin(r_csa, rough, r_hyd, s["s_down"])
-        int_dn = -ms / riv["riv_dist2down"]
-        int_self = ma * csa_rs + mr * hyd_rs - int_dn
-        za, zr, zs = ph.manning_equation_lin(r_csa, rough, r_hyd, s["s_out"])
-        zdg = za * csa_rs + zr * hyd_rs + zs * 2.0 / riv["riv_length"]
-        sq = torch.sqrt(GRAV * maximum(rs, 1e-30))
-        crit = (csa_rs * sq + r_csa * (GRAV * ph.d_max(rs, 1e-30))
-                / (2.0 * sq)) * 60.0
-        to_lake = riv["riv_to_lake"] >= 0
-        p_self = torch.where(to_lake, zdg, torch.where(
-            has_down, int_self,
-            torch.where(riv["riv_outlet_code"] == -4, crit, zdg)))
+        r_csa = s["r_csa"]
+        csa_rs, p_self, p_dn = _reach_lin(
+            self.riv_view, rs, r_csa, s["r_per"], s["r_hyd"], s["s_down"],
+            s["s_out"])
         p_self = p_self * self.frvalid
-        p_dn = torch.where(~to_lake & has_down, int_dn, 0.0) * self.frvalid
+        p_dn = p_dn * self.frvalid
         da_raw, floor = s["d_area_raw"], -r_csa
         f_da, f_w = ph.fun_da_to_dy_lin(s["d_area"], s["r_topw"], bs)
         keep_r = keep_rs * self.frvalid
@@ -637,16 +612,12 @@ class ShardRHS:
 
         # ---- lakes ----
         if nl > 0:
-            lake_stg = s["lake_stg"]
-            ev_raw, prcp = s["q_lake_evap_raw"], s["q_lake_prcp"]
-            y_cap = prcp + lake_stg
-            evap_lk = (ph.d_max(torch.minimum(ev_raw, y_cap), 0.0)
-                       * ph.d_min(y_cap, ev_raw))
             area = s["lake_area"]
-            inflow = s["q_lake_rivin"] + s["q_lake_sub"] + s["q_lake_surf"]
             inv_area = 1.0 / area
-            c_lk = -evap_lk - inflow / (area * area) * _lake_toparea_lin(
-                self.lake_view, lake_stg)
+            c_lk = _lake_lin(
+                self.lake_view, s["lake_stg"], s["q_lake_evap_raw"],
+                s["q_lake_prcp"],
+                s["q_lake_rivin"] + s["q_lake_sub"] + s["q_lake_surf"], area)
 
         apply = (edge_mod.edge_apply if self.edge_kernel
                  else edge_mod.edge_apply_plain)

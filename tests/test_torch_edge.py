@@ -68,8 +68,9 @@ def test_plain_primal_matches_xla(variant, cb):
 
 @pytest.mark.parametrize("variant,cb", CASES)
 def test_function_jvp_matches_jax(variant, cb):
-    """torch.func.jvp through EdgeFluxFunction (coefficients -> apply, plain
-    versions on the CPU) vs jax.jvp of the XLA path, dry-cell ties on."""
+    """The linearization's pieces, ``edge_coeff`` then ``edge_apply`` (the
+    plain versions on the CPU), vs jax.jvp of the XLA path, dry-cell ties
+    on."""
     s = _setup(variant)
     et = s["dm_t"].edge_tables
     dm_j, cu_j = s["dm_j"], s["cu_j"]
@@ -83,15 +84,8 @@ def test_function_jvp_matches_jax(variant, cb):
     (qs_a, qb_a), (tqs_a, tqb_a) = jax.jvp(
         f_xla, (*s["j"], cu_j.eff_kh), tuple(s["tan_j"]))
 
-    calls = []
-
-    def f_port(sf_, gw_, kh_):
-        calls.append(torch._C._are_functorch_transforms_active())
-        return E.edge_fluxes(et, sf_, gw_, kh_, cb)
-
-    (qs_b, qb_b), (tqs_b, tqb_b) = torch.func.jvp(
-        f_port, (*s["t"], s["cu_t"].eff_kh), tuple(s["tan_t"]))
-    assert calls == [True]
+    qs_b, qb_b, *coeffs = E.edge_coeff(*s["t"], s["cu_t"].eff_kh, et, cb)
+    tqs_b, tqb_b = E.edge_apply(coeffs, *s["tan_t"], et)
     assert scaled_err(qs_a, qs_b.numpy()) <= 2e-6
     assert scaled_err(qb_a, qb_b.numpy()) <= 1e-6
     assert scaled_err(tqs_a, tqs_b.numpy()) <= 1e-6
@@ -113,9 +107,11 @@ def test_coefficients_equal_autodiff_f64(cb):
     assert scaled_err(tqb_a, tqb_b) <= 1e-12
 
 
-def test_cpu_wrappers_run_plain_versions():
+def test_cpu_wrappers_run_plain_versions(monkeypatch):
     """On CPU tensors the wrappers are the plain versions and launch
-    nothing; reverse mode through the kernel path is refused."""
+    nothing; reverse mode on the kernel route (stood in for on the CPU:
+    ``rhs._on_kernels`` keeps only the rule of ``edge.kernels_may_run``)
+    is refused."""
     s = _setup("plain")
     et = s["dm_t"].edge_tables
     kh = s["cu_t"].eff_kh
@@ -133,9 +129,12 @@ def test_cpu_wrappers_run_plain_versions():
                                "edge_apply": 0, "tangent_cell": 0,
                                "tangent_reach": 0, "rhs_cell": 0,
                                "rhs_assemble": 0}
+    monkeypatch.setattr(TR, "_on_kernels",
+                        lambda m, *xs: E.kernels_may_run(*xs))
     sf = s["t"][0].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-mode"):
-        E.edge_fluxes(et, sf, s["t"][1], kh, True)
+    with pytest.raises(RuntimeError, match="reverse mode"):
+        TR.edge_fluxes(s["dm_t"], s["cu_t"], sf, s["t"][1],
+                       torch.zeros(0), True)
     with pytest.raises(ValueError, match="float32 on a CUDA"):
         to_torch(meshes("plain", 4, 2)[1], torch.float32, "cpu",
                  edge_kernel=True)

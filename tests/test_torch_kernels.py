@@ -114,9 +114,11 @@ def test_edge_apply_kernel(setup, cb):
 
 
 def test_rhs_and_jvp_with_kernels(setup):
-    """Full f32 RHS and its J·v with the kernels vs the plain path."""
+    """Full f32 RHS with the kernels vs the plain path, and its J·v as the
+    solver takes it with the kernels (rhs.linearize) vs torch.func.jvp of
+    the plain RHS."""
     from shud_tpu_torch.core.device import to_torch
-    from shud_tpu_torch.core.rhs import rhs
+    from shud_tpu_torch.core.rhs import linearize, rhs
     from shud_tpu_torch.core.state import ForcingSlice
 
     md = setup["md"]
@@ -138,12 +140,15 @@ def test_rhs_and_jvp_with_kernels(setup):
     dm_k = to_torch(md, torch.float32, dev)
     dm_p = to_torch(md, torch.float32, dev, edge_kernel=False)
     assert dm_k.edge_kernel and not dm_p.edge_kernel
-    out = {}
-    for name, dm in (("k", dm_k), ("p", dm_p)):
-        out[name] = torch.func.jvp(lambda yy: rhs(dm, fs, 0.0, yy), (y,), (v,))
+    dy_p, jv_p = torch.func.jvp(lambda yy: rhs(dm_p, fs, 0.0, yy), (y,),
+                                (v,))
+    dy_k = rhs(dm_k, fs, 0.0, y)
+    dy_h, jvp = linearize(dm_k, fs, 0.0, y)
+    jv_k = jvp(v)
     torch.cuda.synchronize()
-    assert _scaled(out["p"][0], out["k"][0]) <= 2e-6
-    assert _scaled(out["p"][1], out["k"][1]) <= 2e-6
+    assert _scaled(dy_p, dy_k) <= 2e-6
+    assert _scaled(dy_p, dy_h) <= 2e-6
+    assert _scaled(jv_p, jv_k) <= 2e-6
 
 
 def test_wrappers_refuse_bad_inputs(setup):
@@ -693,16 +698,14 @@ def test_mega_kernels_match_plain_bitwise(mega_case, cb):
 
 
 def test_mega_rhs_jvp_through_the_kernels(mega_case):
-    """torch.func.jvp of rhs_mega launches the RHS and tangent kernels."""
+    """torch.func.jvp of rhs_mega is refused on the card too, naming
+    linearize_mega, and launches no kernel."""
     c = mega_case
     M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
     n0 = dict(M.launch_counts)
-    dy, jv = torch.func.jvp(lambda yy: M.rhs_mega(t, f, yy, True), (y,), (v,))
-    torch.cuda.synchronize()
-    assert M.launch_counts["mega_rhs"] == n0["mega_rhs"] + 1
-    assert M.launch_counts["mega_jvp"] == n0["mega_jvp"] + 1
-    assert torch.equal(dy, M.mega_rhs(t, f, y, True))
-    assert torch.equal(jv, M.mega_jvp(t, f, y, v, True))
+    with pytest.raises(RuntimeError, match="linearize_mega"):
+        torch.func.jvp(lambda yy: M.rhs_mega(t, f, yy, True), (y,), (v,))
+    assert M.launch_counts == n0
 
 
 def test_mega_wrappers_refuse_bad_inputs(mega_case):
@@ -720,7 +723,7 @@ def test_mega_wrappers_refuse_bad_inputs(mega_case):
 
 def test_linearize_mega_on_the_card(mega_case):
     """The solver's hook: one RHS launch, then one tangent launch per
-    vector, bitwise what torch.func.jvp of rhs_mega gives."""
+    vector, bitwise the kernels' plain versions."""
     c = mega_case
     M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
     n0 = dict(M.launch_counts)
@@ -729,10 +732,9 @@ def test_linearize_mega_on_the_card(mega_case):
     torch.cuda.synchronize()
     assert M.launch_counts["mega_rhs"] == n0["mega_rhs"] + 1
     assert M.launch_counts["mega_jvp"] == n0["mega_jvp"] + 2
+    assert torch.equal(fy, M.mega_rhs_plain(t, f, y, True))
     for w, jv in zip((v, 2.0 * v), jvs):
-        dy, ref = torch.func.jvp(lambda yy: M.rhs_mega(t, f, yy, True),
-                                 (y,), (w,))
-        assert torch.equal(fy, dy) and torch.equal(jv, ref)
+        assert torch.equal(jv, M.mega_jvp_plain(t, f, y, w, True))
 
 
 def _mega_call(c, name):

@@ -161,24 +161,37 @@ def test_mega_diag_matches_eager_diag(case):
 
 @pytest.mark.parametrize("kernel", (True, False))
 @pytest.mark.parametrize("case", ("plain", "lake", "branched"))
-def test_func_jvp_through_mega_function(case, kernel):
-    """The solver's J·v (torch.func.jvp of rhs_mega) is the tangent
-    kernel's plain version, and its primal the RHS's, whether the kernels
-    or (``kernel=False``, the card's reference path) their plain versions
-    are asked for."""
+def test_linearize_mega_values(case, kernel):
+    """The solver's hook at *y*: ``linearize_mega``'s dY is the RHS
+    kernel's plain version and, for each vector, its J·v the tangent
+    kernel's plain version, bitwise, whether the kernels or (``kernel=
+    False``, the card's reference path) their plain versions are asked
+    for."""
     d = case_data(case)
-    t, f = d["tables"], d["forcing"]
-    dy, jv = torch.func.jvp(
-        lambda yy: TM.rhs_mega(t, f, yy, d["cb"], kernel),
-        (d["y"],), (d["v"],))
-    assert torch.equal(dy, TM.mega_rhs_plain(t, f, d["y"], d["cb"]))
-    assert torch.equal(jv, TM.mega_jvp_plain(t, f, d["y"], d["v"], d["cb"]))
+    t, f, cb = d["tables"], d["forcing"], d["cb"]
+    fy, jvp = TM.linearize_mega(t, f, d["y"], cb, kernel)
+    assert torch.equal(fy, TM.mega_rhs_plain(t, f, d["y"], cb))
+    assert torch.equal(fy, TM.rhs_mega(t, f, d["y"], cb, kernel))
+    for v in (d["v"], 0.5 * d["v"]):
+        assert torch.equal(jvp(v), TM.mega_jvp_plain(t, f, d["y"], v, cb))
+
+
+@pytest.mark.parametrize("kernel", (True, False))
+def test_rhs_mega_refused_inside_func_jvp(kernel):
+    """rhs_mega inside a torch.func transform raises on every device and
+    names linearize_mega, whose hand tangent autodiff of the plain version
+    would not give (``_dabs`` is 0 at 0)."""
+    d = case_data("plain")
+    t, f, cb = d["tables"], d["forcing"], d["cb"]
+    with pytest.raises(RuntimeError, match="linearize_mega"):
+        torch.func.jvp(lambda yy: TM.rhs_mega(t, f, yy, cb, kernel),
+                       (d["y"],), (d["v"],))
 
 
 def test_rhs_mega_refuses_reverse_mode():
     d = case_data("plain")
     y = d["y"].clone().requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-mode"):
+    with pytest.raises(RuntimeError, match="reverse mode"):
         TM.rhs_mega(d["tables"], d["forcing"], y, d["cb"])
 
 
@@ -245,10 +258,9 @@ def test_checkpoint_of_another_mesh_refused(tmp_path):
 
 def test_linearize_mega_matches_func_jvp_route(monkeypatch):
     """One storm window of the mega path (12x8, f32, CPU) through the
-    solver's linearize hook is bitwise the same window through
-    torch.func.jvp of rhs_mega, with equal steps and NFE; the hook runs the
-    RHS once per Newton iteration and the tangent krylov_m times, where
-    the func.jvp route runs the RHS 1 + krylov_m times."""
+    solver's linearize hook runs the RHS once per Newton iteration and the
+    tangent krylov_m times; the solver's default route, torch.func.jvp of
+    rhs_mega, is refused on the mega path, naming the hook."""
     from shud_tpu_torch.driver import fused
     from shud_tpu_torch.driver.fused import FusedSimulation as TSim
     from shud_tpu_torch.solver import bdf
@@ -272,33 +284,16 @@ def test_linearize_mega_matches_func_jvp_route(monkeypatch):
         return sim, dict(calls), bdf.newton_iters - it0
 
     hook, calls_hook, it_hook = window()
+    m = hook.cfg.krylov_m
+    assert hook.bdf.nfe == it_hook * (1 + m) > 0
+    assert calls_hook == {"mega_rhs_plain": it_hook,
+                          "mega_jvp_plain": m * it_hook}
     solve_to = fused.solve_to
     monkeypatch.setattr(fused, "solve_to",
                         lambda f, st, tout, p, cfg, quad_fn, linearize, **kw:
                         solve_to(f, st, tout, p, cfg, quad_fn, **kw))
-    ref, calls_ref, it_ref = window()
-    assert torch.equal(hook.bdf.y, ref.bdf.y)
-    assert (hook.bdf.nsteps, hook.bdf.nfe) == (ref.bdf.nsteps, ref.bdf.nfe)
-    m = hook.cfg.krylov_m
-    assert it_hook == it_ref and hook.bdf.nfe == it_hook * (1 + m) > 0
-    assert calls_hook == {"mega_rhs_plain": it_hook,
-                          "mega_jvp_plain": m * it_hook}
-    assert calls_ref == {"mega_rhs_plain": (1 + m) * it_ref,
-                         "mega_jvp_plain": m * it_ref}
-
-
-@pytest.mark.parametrize("kernel", (True, False))
-def test_linearize_mega_values(kernel):
-    """linearize_mega gives rhs_mega's dY and, for each vector, the J·v of
-    torch.func.jvp of rhs_mega, bitwise."""
-    d = case_data("lake")
-    t, f, cb = d["tables"], d["forcing"], d["cb"]
-    fy, jvp = TM.linearize_mega(t, f, d["y"], cb, kernel)
-    assert torch.equal(fy, TM.rhs_mega(t, f, d["y"], cb, kernel))
-    for v in (d["v"], 0.5 * d["v"]):
-        _, jv = torch.func.jvp(lambda yy: TM.rhs_mega(t, f, yy, cb, kernel),
-                               (d["y"],), (v,))
-        assert torch.equal(jvp(v), jv)
+    with pytest.raises(RuntimeError, match="linearize_mega"):
+        window()
 
 
 @pytest.mark.parametrize("case,n_threads", (

@@ -471,14 +471,18 @@ def test_rhs_route_decision(case, monkeypatch):
     stood in for on the CPU: a lake-free mesh there takes them, and so
     does no call off that route, on a lake mesh, on the absolute-head
     oracle or inside a ``torch.func`` transform; a call autograd would
-    record there is refused, as ``edge.edge_fluxes`` refuses it."""
+    record there is refused (``edge.kernels_may_run``, the rule that
+    ``_on_kernels`` keeps on the card)."""
+    from shud_tpu_torch.core import edge as E
+
     md_j, md_t, cb, fs, y, v = _lin_case("lake" if case == "lake" else "bc")
     dm = to_torch(md_t, torch.float32, "cpu")
     fs_t = TFS(**{k: torch.tensor(a, dtype=torch.float32)
                   for k, a in fs.items()})
     yt = torch.tensor(y, dtype=torch.float32)
     if case != "off_card":
-        monkeypatch.setattr(TR, "_on_kernels", lambda m, x: True)
+        monkeypatch.setattr(TR, "_on_kernels",
+                            lambda m, *xs: E.kernels_may_run(*xs))
     if case == "autograd":
         with pytest.raises(RuntimeError, match="reverse mode"):
             TR._rhs_on_kernels(dm, fs_t, yt.requires_grad_(True), False)

@@ -72,8 +72,7 @@ def _toy_jvp(y, v, k):
 
 
 class _Toy(torch.autograd.Function):
-    """_toy_f with a hand tangent, as MegaFunction carries the mega
-    kernels'; counts its primal evaluations."""
+    """_toy_f with a hand tangent; counts its primal evaluations."""
 
     calls = 0
 
