@@ -247,8 +247,12 @@ def build_mega_tables(md, max_cells: int = MAX_CELLS) -> "MegaTables | None":
     t = MegaTables(**{k: (v.contiguous() if isinstance(v, torch.Tensor)
                           else v) for k, v in kw.items()})
     dims = _kernel_dims(t)
-    for name, value in (("lakes", nl), ("lake_cells", int((i_lake > 0).sum())),
-                        ("kel", dims[7]), ("krl", dims[8]), ("kup", dims[6])):
+    counts = [("lakes", nl), ("lake_cells", int((i_lake > 0).sum())),
+              ("kel", dims[7]), ("krl", dims[8]), ("kup", dims[6])]
+    if nl > 0:  # the gather rounds of one stage C: the widest lake list
+        counts.append(("stage_c_rounds",
+                       -(-max(dims[7], dims[8]) // STAGE_C_CHUNK)))
+    for name, value in counts:
         trace.count(f"shud.mega.{name}", value)
     return t
 
@@ -1163,6 +1167,9 @@ _FLOAT_TABLES = ("cell_f", "edge_f", "seg_f", "riv_f", "lake_zmin",
                  "bathy_y", "bathy_a")
 # threads per block of the one-launch kernels (csrc/mega.cu kBlock)
 FUSED_BLOCK = 128
+# lake-list entries a round of stage C gathers, one a thread (csrc/mega.cu
+# kChunk)
+STAGE_C_CHUNK = FUSED_BLOCK
 
 
 def _require(name, t, dev, dtype, shape):

@@ -18,8 +18,8 @@ places the host's steps beside the card's kernels.  With recording off
 and no profiler, ``span`` returns one shared no-op context.
 
 A counter is a number the program states once at set-up (``count``,
-kept always; ``counters()``): the mega path's lakes, lake cells and widest
-lists (``shud.mega.*``).
+kept always; ``counters()``): the mega path's lakes, lake cells, widest
+lists and, on a lake mesh, stage C's gather rounds (``shud.mega.*``).
 
 The device's side is the stamps inside the interval graph
 (``driver/fused.py`` ``IntervalGraph.phases``) and the mega kernels' lake

@@ -22,12 +22,16 @@ refuse what they cannot take.  The interval graph's stamps
 tracing on, the captured pieces unchanged.  The mega kernels' lake stage
 clock (``mega.lake_stage_ns``) on a three-lake variant of the benchmark's
 lake basin: only with tracing on, eager and captured, every output
-bitwise the untimed one's.
+bitwise the untimed one's.  Stage C (a block per lake) bitwise its plain
+versions on lake basins whose widest bank-edge list lies inside one,
+on the boundary of, and across two and three of its gather rounds, with
+several lakes and more lakes than blocks.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch_variants import STAGE_C_BASINS
 
 torch.set_num_threads(1)
 
@@ -1038,30 +1042,6 @@ def test_interval_graph_stamps_only_when_traced():
     assert stamps(sim.interval.program.nodes) == 0
 
 
-def _lake_basin():
-    """The benchmark's ``lakes-32k`` basin at 16 x 12 quads (384 cells,
-    131 reaches ending at the shore) with three lakes of 80/10/10% of its
-    lake cells in place of its one, so that each lake's thread reads its
-    own clock; its configuration and storm traffic
-    (``portbench/generators/lakebasin.py``; no JAX)."""
-    import json
-    from pathlib import Path
-
-    from portbench import gen, harness
-
-    bench = Path(__file__).resolve().parent.parent / "portbench"
-    cfg = dict(json.loads((bench / "configs/lakes-32k.json").read_text()),
-               nx=16, ny=12)
-    lake = cfg["lakes"][0]
-    cfg["lakes"] = [dict(lake, share=0.8, centre=[0.5, 0.46]),
-                    dict(lake, share=0.1, centre=[0.17, 0.83]),
-                    dict(lake, share=0.1, centre=[0.85, 0.16])]
-    traffic = json.loads((bench / "traffic/storm.json").read_text())
-    raw = gen.make_raw(cfg, traffic,
-                       generator=harness.hooks(harness.OWN, cfg).generator)
-    return raw, cfg, traffic
-
-
 def test_mega_lake_clock_only_when_traced():
     """Stage C's clock (``mega.lake_stage_ns``) on a basin of three
     lakes: with tracing off no clock is passed and it stays zero; with it
@@ -1075,9 +1055,9 @@ def test_mega_lake_clock_only_when_traced():
     from shud_tpu_torch.core.state import ForcingSlice
     from shud_tpu_torch.io import project
     from portbench import gen
-    from torch_variants import mega_inputs
+    from torch_variants import THREE_LAKES, lake_basin, mega_inputs
 
-    raw, _, _ = _lake_basin()
+    raw, _, _ = lake_basin(lakes=THREE_LAKES)
     md = build_mesh(gen.to_input(raw, project, "."))
     dev = torch.device("cuda")
     t = M.build_mega_tables(md).to(dev)
@@ -1117,8 +1097,9 @@ def test_interval_graph_lake_clock_only_when_traced():
     from shud_tpu_torch import trace
     from shud_tpu_torch.core import mega as M
     from portbench.program import Program
+    from torch_variants import THREE_LAKES, lake_basin
 
-    raw, cfg, traffic = _lake_basin()
+    raw, cfg, traffic = lake_basin(lakes=THREE_LAKES)
     prog = Program(raw, cfg, dict(traffic, end_min=840.0), "cuda", "build")
     t = prog.sim.mega
     prog.snapshot()
@@ -1144,6 +1125,54 @@ def test_interval_graph_lake_clock_only_when_traced():
             assert np.array_equal(a[k], b[k]), k
     for a, b in zip(replays[False][0], replays[False][1]):
         assert np.array_equal(a["y"], b["y"])
+
+
+@pytest.fixture(scope="module", params=tuple(STAGE_C_BASINS))
+def stage_c_case(request):
+    """A basin of ``torch_variants.STAGE_C_BASINS`` on the card: its mega
+    tables, a packed forcing, a state and a tangent (``mega_inputs``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from shud_tpu_torch.core import mega as M
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.core.state import ForcingSlice
+    from shud_tpu_torch.io import project
+    from portbench import gen
+    from torch_variants import lake_basin, mega_inputs
+
+    kwargs, nl, kel, _ = STAGE_C_BASINS[request.param]
+    raw, _, _ = lake_basin(**kwargs)
+    md = build_mesh(gen.to_input(raw, project, "."))
+    dev = torch.device("cuda")
+    t = M.build_mega_tables(md).to(dev)
+    assert (t.nl, t.edge_to_lake.shape[1]) == (nl, kel)
+    fs, y, v = mega_inputs(md, seed=9)
+    f = M.pack_forcing(t, ForcingSlice(
+        **{k: torch.as_tensor(a, device=dev) for k, a in fs.items()}))
+    return dict(M=M, name=request.param, tables=t, forcing=f,
+                y=torch.as_tensor(y, device=dev),
+                v=torch.as_tensor(v, device=dev))
+
+
+@pytest.mark.parametrize("cb", (True, False))
+def test_mega_stage_c_matches_plain_bitwise(stage_c_case, cb):
+    """Stage C a block per lake, its lists gathered 128 entries a round
+    and summed in list order: the RHS, J·v and diagnostics bitwise their
+    plain versions on lake basins whose widest bank-edge list lies inside
+    one round, on a round's boundary and across two and three rounds
+    (reaches flowing into the lake among them), with lakes of unequal
+    widths in one launch, and with more lakes than the grid has blocks."""
+    c = stage_c_case
+    M, t, f, y, v = c["M"], c["tables"], c["forcing"], c["y"], c["v"]
+    outs = (M.mega_rhs(t, f, y, cb), M.mega_jvp(t, f, y, v, cb),
+            M.mega_diag(t, f, y, cb))
+    plain = (M.mega_rhs_plain(t, f, y, cb), M.mega_jvp_plain(t, f, y, v, cb),
+             M.mega_diag_plain(t, f, y, cb))
+    torch.cuda.synchronize()
+    grid = t._launch.dims["mega_rhs", cb][11]
+    assert (grid < t.nl) == (c["name"] == "seven")  # the block stride runs
+    for name, a, b in zip(("mega_rhs", "mega_jvp", "mega_diag"), outs, plain):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("with_lake", (False, True))

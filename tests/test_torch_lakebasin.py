@@ -42,7 +42,8 @@ import pytest
 import torch
 
 from portbench import compare, gen, harness
-from torch_variants import random_inputs, scaled_err
+from torch_variants import (STAGE_C_BASINS, lake_basin, make_project,
+                            random_inputs, scaled_err)
 
 torch.set_num_threads(1)
 
@@ -140,7 +141,7 @@ def test_generator_gives_a_closed_basin(basin):
         "shud.mega.lakes": 1, "shud.mega.lake_cells": int((lake >= 0).sum()),
         "shud.mega.kel": t.edge_to_lake.shape[1],
         "shud.mega.krl": t.riv_to_lake.shape[1],
-        "shud.mega.kup": t.riv_up.shape[1]}
+        "shud.mega.kup": t.riv_up.shape[1], "shud.mega.stage_c_rounds": 1}
     for rows, members, pad in (
             (t.cell_to_lake, lake, ne), (t.edge_to_lake, bank.ravel(), 3 * ne),
             (t.riv_to_lake, np.where(down <= -4, -4 - down, -1), nr)):
@@ -153,6 +154,37 @@ def test_generator_gives_a_closed_basin(basin):
     first = basin["hooks"].generator.make(cfg, _traffic())
     for k in ("tri", "nodes", "att", "riv", "rivseg"):
         np.testing.assert_array_equal(again[k], first[k], err_msg=k)
+
+
+@pytest.mark.parametrize("case", ("plain", "lake", "three", "k128", "k129",
+                                  "wide"))
+def test_mega_tables_state_stage_c_rounds(case, monkeypatch):
+    """On a lake mesh ``build_mega_tables`` states
+    ``shud.mega.stage_c_rounds``: the gather rounds that the widest lake
+    list (bank edges or inflow reaches) takes at ``STAGE_C_CHUNK`` entries
+    a round, one on the synthetic lake and the three-lake basin, one at
+    128 bank edges, two at 129, three at 267; on a lake-free mesh it states
+    the other counters and not this one."""
+    from shud_tpu_torch import trace
+    from shud_tpu_torch.core import mega
+    from shud_tpu_torch.core.mesh import build_mesh
+    from shud_tpu_torch.io import project
+
+    monkeypatch.setattr(trace, "_REC", trace.Recorder())
+    if case in ("plain", "lake"):
+        md, rounds = build_mesh(make_project("torch", case)), 1
+    else:
+        kwargs, _, _, rounds = STAGE_C_BASINS[case]
+        md = build_mesh(gen.to_input(lake_basin(**kwargs)[0], project, "."))
+    t = mega.build_mega_tables(md)
+    got = trace.counters()
+    assert got["shud.mega.kel"] == t.edge_to_lake.shape[1]
+    if case == "plain":
+        assert t.nl == 0 and "shud.mega.stage_c_rounds" not in got
+        return
+    widest = max(t.edge_to_lake.shape[1], t.riv_to_lake.shape[1])
+    assert got["shud.mega.stage_c_rounds"] == rounds == -(
+        -widest // mega.STAGE_C_CHUNK)
 
 
 def test_lake_forcing_pack_takes_as_many_operations_at_any_size(basin):

@@ -165,6 +165,62 @@ def mega_inputs(md, seed: int):
     return fs, y, v
 
 
+# lakes in place of the lakes-32k basin's one: (share of the lake cells,
+# centre as a fraction of the grid) each
+THREE_LAKES = ((0.8, (0.5, 0.46)), (0.1, (0.17, 0.83)), (0.1, (0.85, 0.16)))
+SEVEN_LAKES = ((0.4, (0.5, 0.5)), (0.1, (0.12, 0.15)), (0.1, (0.12, 0.85)),
+               (0.1, (0.88, 0.15)), (0.1, (0.88, 0.85)), (0.1, (0.5, 0.1)),
+               (0.1, (0.5, 0.9)))
+
+# Lake basins for the mega kernels' stage C, which gathers a lake's lists
+# 128 entries a round (core/mega.py STAGE_C_CHUNK): name -> (lake_basin's
+# arguments, lakes, widest bank-edge list, gather rounds).  Lakes of
+# unequal widths in one launch; more lakes (7) than the 16 x 12 basin's
+# grid has blocks (5); the widest list inside one round (127), on a
+# round's boundary (128, 129), across two (the benchmark's lakes-32k at
+# its full size) and across three (a larger lake whose 105 outlets flow
+# into it).
+STAGE_C_BASINS = {
+    "three": (dict(lakes=THREE_LAKES), 3, 20, 1),
+    "seven": (dict(lakes=SEVEN_LAKES), 7, 18, 1),
+    "k127": (dict(nx=64, ny=64, share=0.18), 1, 127, 1),
+    "k128": (dict(nx=64, ny=48, share=0.26), 1, 128, 1),
+    "k129": (dict(nx=64, ny=48, share=0.2525), 1, 129, 2),
+    "full": (dict(nx=128, ny=128), 1, 229, 2),
+    "wide": (dict(nx=128, ny=128, share=0.3, routed=True), 1, 267, 3),
+}
+
+
+def lake_basin(nx: int = 16, ny: int = 12, lakes=None,
+               share: "float | None" = None, routed: bool = False):
+    """The benchmark's ``lakes-32k`` basin (``portbench/generators/
+    lakebasin.py``; no JAX) at *nx* x *ny* quads, with *lakes* in place of
+    its one (``None``: its own), *share* of its cells in lakes where given,
+    and with *routed* its outlets flowing into the first lake (``down``
+    -4): the raw project, its configuration and the storm traffic."""
+    import json
+    from pathlib import Path
+
+    from portbench import gen, harness
+
+    bench = Path(__file__).resolve().parent.parent / "portbench"
+    cfg = dict(json.loads((bench / "configs/lakes-32k.json").read_text()),
+               nx=nx, ny=ny)
+    if lakes is not None:
+        lake = cfg["lakes"][0]
+        cfg["lakes"] = [dict(lake, share=s, centre=list(c)) for s, c in lakes]
+    if share is not None:
+        cfg["lake_cell_share"] = share
+    traffic = json.loads((bench / "traffic/storm.json").read_text())
+    raw = gen.make_raw(cfg, traffic,
+                       generator=harness.hooks(harness.OWN, cfg).generator)
+    if routed:
+        riv = raw["riv"].copy()
+        riv[:, 1] = np.where(riv[:, 1] == -3, -4, riv[:, 1])
+        raw = dict(raw, riv=riv)
+    return raw, cfg, traffic
+
+
 # the CMFD2 variables: (cfg key, file variable, units)
 CMFD_VARS = (("PREC", "prec", "mm/day"), ("TEMP", "temp", "K"),
              ("SHUM", "shum", "kg/kg"), ("SRAD", "srad", "W m-2"),
