@@ -804,22 +804,25 @@ class FusedSimulation:
             setattr(inp.control, k, v)
         from shud_tpu_torch.io.validate import check_input
 
-        check_input(inp)
-        md = build_mesh(inp)
-        mega_tables = None
-        if mega is True or (mega == "auto" and float_dtype == torch.float32
-                            and device.type == "cuda"):
-            mega_tables = mega_mod.build_mega_tables(md)
-            if mega_tables is None and mega is True:
-                raise ValueError(
-                    f"the mesh is not eligible for the megakernel path "
-                    f"({md.num_ele} cells, {md.num_riv} reaches, "
-                    f"{md.num_seg} segments, {md.num_lake} lakes)")
-            if mega_tables is not None:
-                mega_tables = mega_tables.to(device)
-        if edge_kernel == "auto":
-            edge_kernel = None
-        dm = to_torch(md, float_dtype, device, edge_kernel=edge_kernel)
+        with trace.step("shud.setup.mesh"):
+            check_input(inp)
+            md = build_mesh(inp)
+        with trace.step("shud.setup.tables"):
+            mega_tables = None
+            if mega is True or (mega == "auto"
+                                and float_dtype == torch.float32
+                                and device.type == "cuda"):
+                mega_tables = mega_mod.build_mega_tables(md)
+                if mega_tables is None and mega is True:
+                    raise ValueError(
+                        f"the mesh is not eligible for the megakernel path "
+                        f"({md.num_ele} cells, {md.num_riv} reaches, "
+                        f"{md.num_seg} segments, {md.num_lake} lakes)")
+                if mega_tables is not None:
+                    mega_tables = mega_tables.to(device)
+            if edge_kernel == "auto":
+                edge_kernel = None
+            dm = to_torch(md, float_dtype, device, edge_kernel=edge_kernel)
         fd = float_dtype
         if fr is None:
             fr = build_forcing(inp, md)

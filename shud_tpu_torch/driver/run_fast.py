@@ -211,12 +211,16 @@ def _to_host(tree):
     """Tensors (in dicts, to any depth) -> numpy, other leaves unchanged:
     the tensors of one dtype and device packed into one buffer and fetched
     in one transfer (one host sync), as JAX's ``jax.device_get`` fetches
-    the tree at once."""
+    the tree at once.  States the tensors' bytes as the counter
+    ``shud.fetch.bytes``."""
     leaves, spec = pytree.tree_flatten(tree)
     groups = {}
+    nbytes = 0
     for i, x in enumerate(leaves):
         if isinstance(x, torch.Tensor):
             groups.setdefault((x.dtype, x.device), []).append(i)
+            nbytes += x.numel() * x.element_size()
+    trace.count("shud.fetch.bytes", nbytes)
     for idx in groups.values():
         parts = [leaves[i].detach() for i in idx]
         flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()

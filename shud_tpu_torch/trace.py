@@ -17,9 +17,12 @@ name, recorded or not, so that a profiler trace (the CLI's ``--profile``)
 places the host's steps beside the card's kernels.  With recording off
 and no profiler, ``span`` returns one shared no-op context.
 
-A counter is a number the program states once at set-up (``count``,
-kept always; ``counters()``): the mega path's lakes, lake cells, widest
-lists and, on a lake mesh, stage C's gather rounds (``shud.mega.*``).
+A counter is a number the program states (``count``, kept always, and
+kept by ``clear``; ``counters()``): at set-up the mega path's lakes,
+lake cells, widest lists and, on a lake mesh, stage C's gather rounds
+(``shud.mega.*``), and the nanoseconds of the set-up's steps
+(``shud.setup.mesh_ns``, ``shud.setup.tables_ns``: ``step``); at each
+fetch the bytes it moved (``shud.fetch.bytes``).
 
 The device's side is the stamps inside the interval graph
 (``driver/fused.py`` ``IntervalGraph.phases``) and the mega kernels' lake
@@ -76,7 +79,7 @@ class _Open:
     """One span being timed (*rec* None: a profiler range only)."""
 
     __slots__ = ("rec", "name", "range", "index", "parent", "interval",
-                 "start")
+                 "start", "end")
 
     def __init__(self, rec, name: str, profiling: bool):
         self.rec, self.name = rec, name
@@ -101,7 +104,7 @@ class _Open:
     def __exit__(self, *exc):
         rec = self.rec
         if rec is not None:
-            end = time.perf_counter_ns()
+            self.end = end = time.perf_counter_ns()
             rec.open.pop()
             rec.kept.append(Span(self.index, self.name, self.start, end,
                                  self.parent, self.interval))
@@ -131,6 +134,16 @@ def spanned(name: str, always: bool = False):
                 return fn(*args, **kwargs)
         return timed
     return wrap
+
+
+@contextlib.contextmanager
+def step(name: str):
+    """A set-up step: ``span(name, always=True)``, whose nanoseconds are
+    also stated as the counter ``<name>_ns`` when it ends (a counter
+    outlives ``clear``, which drops the span)."""
+    with span(name, always=True) as s:
+        yield
+    count(f"{name}_ns", s.end - s.start)
 
 
 def record(name: str, start_ns: int, end_ns: int) -> None:

@@ -203,3 +203,94 @@ def test_spans_are_profiler_ranges_with_tracing_off():
             "shud.interval.launch", "shud.interval.wait",
             "shud.interval.copy_out", "shud.fetch"} <= names
     assert trace.spans() == []
+
+
+SETUP_STEPS = ("shud.setup.mesh", "shud.setup.tables")
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh recorder: no span or counter of other tests."""
+    monkeypatch.setattr(trace, "_REC", trace.Recorder())
+
+
+@pytest.mark.parametrize("path", ("edge", "mega"))
+def test_create_records_setup_steps_with_tracing_off(recorder, path):
+    """``create`` with tracing off records the mesh's and the tables'
+    steps inside ``shud.setup.create``, one after the other, and states
+    each one's nanoseconds as a counter."""
+    _sim(path)
+    got = {s.name: s for s in trace.spans()}
+    assert set(got) == {"shud.setup.create", *SETUP_STEPS}
+    create, mesh, tables = (got[n] for n in ("shud.setup.create",
+                                             *SETUP_STEPS))
+    assert mesh.parent == tables.parent == create.index
+    assert create.start_ns <= mesh.start_ns <= mesh.end_ns
+    assert mesh.end_ns <= tables.start_ns <= tables.end_ns <= create.end_ns
+    counters = trace.counters()
+    for name in SETUP_STEPS:
+        assert counters[f"{name}_ns"] == got[name].end_ns - got[name].start_ns
+
+
+def test_setup_counters_survive_clear(recorder):
+    _sim()
+    before = {k: v for k, v in trace.counters().items()
+              if k.startswith("shud.setup.")}
+    assert set(before) == {f"{n}_ns" for n in SETUP_STEPS}
+    assert all(isinstance(v, int) and v > 0 for v in before.values())
+    trace.clear()
+    assert trace.spans() == []
+    assert {k: trace.counters()[k] for k in before} == before
+
+
+def test_fetch_states_its_bytes(recorder):
+    """``_to_host`` states the bytes of the tensors it fetched, of every
+    dtype, the last call's."""
+    tree = {"a": torch.zeros(5, 3, dtype=torch.float32),
+            "b": [torch.ones(7, dtype=torch.float64), 2.5],
+            "c": {"d": torch.arange(4), "e": torch.zeros((), dtype=torch.int32),
+                  "f": "text"}}
+    _to_host(tree)
+    assert trace.counters()["shud.fetch.bytes"] == 15 * 4 + 7 * 8 + 4 * 8 + 4
+    _to_host({"y": torch.zeros(3, dtype=torch.float32), "n": 1})
+    assert trace.counters()["shud.fetch.bytes"] == 12
+    _to_host({"n": 1})
+    assert trace.counters()["shud.fetch.bytes"] == 0
+
+
+def _reader(name):
+    from portbench import harness
+
+    return harness.reader(harness.OWN, name)
+
+
+def _probe(**trace_got):
+    """A probe as the benchmark's readers see it after a traced window:
+    the interval graph's counters and ``portbench/spans.py``'s readings
+    (6 intervals, the fetch's mean span 250 us an interval)."""
+    from types import SimpleNamespace
+
+    got = {"intervals": 6, "span_us": {"shud.fetch": 250.0}}
+    got.update(trace_got)
+    return SimpleNamespace(graph_stats={"windows": 36}, _program_trace=got)
+
+
+@pytest.mark.parametrize("name", ("setup.mesh_s", "driver.fetch_gbps"))
+def test_readers_find_nothing_without_the_counters(recorder, name):
+    """The benchmark's readers of the set-up and fetch counters give None
+    for a program that states neither; with the counters they read them.
+    Without an interval graph the fetch's reader has no span to read, and
+    the set-up's reader still reads its counter."""
+    read = _reader(name).read
+    assert read(_probe()) is None
+    trace.count("shud.setup.mesh_ns", 2_500_000_000)
+    trace.count("shud.fetch.bytes", 50_000_000)
+    want = {"setup.mesh_s": 2.5, "driver.fetch_gbps": 200.0}[name]
+    assert read(_probe()) == pytest.approx(want)
+    # no interval graph: no graph counters, and spans.py reads nothing
+    graphless = _probe()
+    graphless.graph_stats = graphless._program_trace = None
+    if name == "setup.mesh_s":
+        assert read(graphless) == pytest.approx(2.5)
+    else:
+        assert read(graphless) is None
